@@ -2,8 +2,7 @@
 adjoint megakernel (kernels/grad_megakernel.py) — Pallas forward AND backward.
 
 Unlike examples/inverse_albedo.py (jnp AD — flexible, differentiates anything),
-this is the production training path: ~13× the throughput (bench_train.py /
-BASELINE.md), gradients w.r.t. the scene's deduplicated material classes
+this is the production training path: gradients w.r.t. the scene's deduplicated material classes
 (5 for the Cornell scene), parameter updates never recompile.
 
 Run:  python examples/train_kernel.py  [--steps 60] [--size 128] [--spp 8]

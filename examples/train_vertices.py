@@ -10,7 +10,7 @@ step at kernel speed: Pallas pairwise forwards, Pallas arbitrary-ray boundary
 probes, and (here) no jnp interior term — the trainable subset is the light
 quad of a diffuse scene, whose interior term is identically zero.
 
-Run (TPU or CPU-interpret):
+Run (GPU, or CPU with the kernels interpreted):
     PYTHONPATH=. python examples/train_vertices.py [--steps 60] [--size 48]
 """
 

@@ -1,16 +1,17 @@
-"""oclpathtracer_tpu — a TPU-native differentiable path tracer built on JAX/XLA/Pallas.
+"""oclpathtracer_tpu — a differentiable path tracer built on JAX/XLA/Pallas.
 
 A from-scratch framework with the capabilities of the reference OpenCL path tracer
 (PixelClear/OclPathTracer): scene I/O, camera ray generation, triangle intersection,
 ambient occlusion, direct + indirect radiance integration with GGX specular bounces —
-plus end-to-end differentiability and multi-chip sharding that the reference lacks.
+plus end-to-end differentiability and multi-device sharding that the reference lacks.
 
-Layer map (TPU-native; see SURVEY.md §7 for the design rationale):
+Layer map (see SURVEY.md §7 for the design rationale):
 
   scene/        scene binary I/O + SoA geometry pytrees
   core/         rays, RNG, camera, intersection, BRDF math (pure jnp, vmap/batch)
   integrators/  primary / AO / direct-NEE / full path trace (megakernel jnp form)
-  kernels/      Pallas TPU kernels (fused megakernel, wavefront, intersect tiles)
+  kernels/      Pallas kernels, compiled through Triton on the GPU (fused
+                path-trace megakernel, adjoint megakernel) and the route picker
   diff/         differentiable rendering: losses, gradient helpers
   parallel/     device mesh, shard_map tile/sample sharding, psum train steps
   render/       progressive render driver, accumulation, checkpoints, image I/O

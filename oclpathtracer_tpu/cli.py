@@ -2,7 +2,7 @@
 
 The reference's CLI surface is main.cpp:154-177 (backend arg + gtest runner whose
 real outputs are a device-info dump and the RayCast render → PPM). Equivalent
-commands here, plus what the TPU build adds (integrator ladder, bench, sharding):
+commands here, plus what this build adds (integrator ladder, bench):
 
   info                 device enumeration + queries (≡ DeviceTest.deviceInfo)
   render               progressive render → PPM/PNG (≡ DeviceTest.RayCast)
@@ -55,32 +55,7 @@ def _cmd_render(args) -> int:
         from oclpathtracer_tpu.kernels.megakernel import render_pallas
 
         img = render_pallas(scene, cfg, args.spp,
-                            samples_per_call=min(args.spp, 64), scan=args.scan,
-                            interleave=args.interleave,
-                            scan_chunks=args.scan_chunks)
-    elif args.integrator == "wavefront":
-        from oclpathtracer_tpu.kernels.wavefront import render_wavefront
-
-        img = render_wavefront(scene, cfg, args.spp,
-                               samples_per_call=min(args.spp, 64),
-                               scan=args.scan, interleave=args.interleave,
-                               scan_chunks=args.scan_chunks)
-    elif args.integrator == "bvh":
-        from oclpathtracer_tpu.kernels.bvh_megakernel import render_bvh
-
-        img = render_bvh(scene, cfg, args.spp,
-                         samples_per_call=min(args.spp, 64), scan=args.scan)
-    elif args.integrator == "widebvh":
-        from oclpathtracer_tpu.render.driver import render_progressive
-
-        img = render_progressive(scene, cfg, args.spp,
-                                 samples_per_step=min(args.spp, 64),
-                                 backend="widebvh", scan=args.scan)
-    elif args.integrator == "sorted":
-        from oclpathtracer_tpu.kernels.sorted_wavefront import render_sorted
-
-        img = render_sorted(scene, cfg, args.spp,
-                            samples_per_call=min(args.spp, 8))
+                            samples_per_call=min(args.spp, 64), scan=args.scan)
     elif args.integrator == "path":
         from oclpathtracer_tpu.render.driver import render_progressive
 
@@ -93,19 +68,6 @@ def _cmd_render(args) -> int:
         from oclpathtracer_tpu.integrators.ao import render_ao
 
         img = render_ao(scene, cfg, rng.make_key(cfg.seed), spp=args.spp)
-    elif args.integrator == "ao-pallas":
-        from oclpathtracer_tpu.kernels.fast_integrators import render_ao_pallas
-        from oclpathtracer_tpu.kernels.megakernel import pack_scene
-
-        img = render_ao_pallas(pack_scene(scene), cfg, 0, args.spp) / args.spp
-    elif args.integrator == "direct-pallas":
-        from oclpathtracer_tpu.kernels.fast_integrators import (
-            pack_lights, render_direct_pallas)
-        from oclpathtracer_tpu.kernels.megakernel import pack_scene
-
-        lt, area = pack_lights(scene)
-        img = render_direct_pallas(pack_scene(scene), lt, area, cfg, 0,
-                                   args.spp) / args.spp
     elif args.integrator == "direct":
         from oclpathtracer_tpu.core import rng
         from oclpathtracer_tpu.integrators.direct import render_direct
@@ -157,24 +119,16 @@ def main(argv=None) -> int:
     r.add_argument("--bounces", type=int, default=16)
     r.add_argument("--seed", type=int, default=0)
     r.add_argument("--integrator", default="pallas",
-                   choices=["pallas", "wavefront", "bvh", "widebvh", "sorted",
-                            "path", "primary",
-                            "ao", "ao-pallas", "direct", "direct-pallas"])
+                   choices=["pallas", "path", "primary", "ao", "direct"])
     r.add_argument("--output", "-o", default="render.png")
     r.add_argument("--checkpoint", default=None)
     r.add_argument("--checkpoint-every", type=int, default=0)
     r.add_argument("--scan", default="auto",
                    choices=["auto", "parity", "fast", "tp"],
-                   help="triangle-scan arithmetic for pallas/wavefront/bvh: "
+                   help="triangle-scan arithmetic for pallas: "
                         "reference-exact 'parity', division-free 'fast', or "
                         "triple-product 'tp' (auto = the fastest the scene's "
                         "materials support: tp, else fast, else parity)")
-    r.add_argument("--interleave", type=int, default=0,
-                   help="sample/stream interleave width for pallas/wavefront "
-                        "(0 = auto; megakernel output is interleave-invariant)")
-    r.add_argument("--scan-chunks", type=int, default=0,
-                   help="independent best-hit scan chains for pallas/wavefront "
-                        "(0 = auto; see megakernel.resolve_scan_chunks)")
     r.add_argument("--reference-quirk", action="store_true",
                    help="reproduce the reference's double-gamma PPM export")
     r.add_argument("--profile", default=None, metavar="DIR",

@@ -9,8 +9,8 @@ the quirks SURVEY.md §2.2 flags for parity:
   * the tangent frame picks axis (0,1,0) when |n.x| > 0.001 else (1,0,0)
     (GenerateColors.cl:167, :187).
 
-Branch-free: both lobes are evaluated and selected by material type — on the VPU
-this is cheaper than divergence and is required under vmap/jit anyway.
+Branch-free: both lobes are evaluated and selected by material type — required
+under vmap/jit anyway, and it keeps the kernels' lanes in step.
 """
 
 from __future__ import annotations

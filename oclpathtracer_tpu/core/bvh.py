@@ -3,26 +3,23 @@
 The reference intersects by brute-force linear scan over all triangles
 (intersectWorld, GenerateColors.cl:137-154) — fine for its 36 triangles, hopeless
 beyond. The north star (BASELINE.json) mandates the upgrade: a flattened BVH laid
-out for Pallas.
+out for a kernel to walk.
 
-Layout: pre-order depth-first with SKIP LINKS — stackless traversal suited to the
-TPU's vector ISA (SURVEY.md §7 hard-part 2):
+Layout: pre-order depth-first with SKIP LINKS — stackless traversal (SURVEY.md §7
+hard-part 2):
 
   * node i's first child is i+1 (pre-order); `skip[i]` is the node visited when the
     subtree rooted at i is culled — traversal is `i = hit ? i+1 : skip[i]`, one
     scalar induction variable, no stack;
   * leaves store a contiguous [tri_start, tri_start+tri_count) range into a
-    REORDERED triangle array, so leaf tests are dense vector loops;
-  * the Pallas kernel (kernels/bvh_megakernel.py) walks nodes SYNCHRONIZED across
-    the (8,128) ray tile — node data comes from SMEM as scalars, every lane tests
-    its own ray against the node box, and the tile descends iff ANY lane hits:
-    coherent tiles prune like a scalar tracer, incoherent tiles degrade gracefully
-    toward the brute-force cost.
+    REORDERED triangle array, so leaf tests are dense loops.
+
+`intersect_bvh` is the vmap reference traversal; no GPU traversal kernel exists
+yet (the linear megakernel serves every scene size).
 
 Build: top-down binned SAH (16 bins over the longest centroid axis, surface-area
 cost SA_L·N_L + SA_R·N_R, median-split fallback for degenerate distributions).
-The builder is host-side numpy; on the tile-synchronized traversal a better tree
-directly shrinks the UNION of subtrees an incoherent tile visits.
+The builder is host-side numpy.
 """
 
 from __future__ import annotations
@@ -119,11 +116,8 @@ def build_bvh(geom: Geometry, leaf_size: int = 4, branching: int = 2) -> FlatBVH
 
     branching: children per internal node (power of two). The flattened format
     is branching-agnostic (box + skip + leaf range per node); wider trees have
-    ~(b-1)/b fewer internal nodes, which directly cuts the tile-synchronized
-    traversal's iteration count — its measured cost driver — because an
-    incoherent (8,128) tile visits the UNION of its rays' subtrees (~73% of all
-    nodes on a 5k-tri scene). A b-wide node is built as log2(b) recursive binned-
-    SAH splits, so box quality matches the binary tree."""
+    ~(b-1)/b fewer internal nodes. A b-wide node is built as log2(b) recursive
+    binned-SAH splits, so box quality matches the binary tree."""
     p1 = np.asarray(geom.p1, np.float64)
     p2 = np.asarray(geom.p2, np.float64)
     p3 = np.asarray(geom.p3, np.float64)
@@ -159,9 +153,7 @@ def build_bvh(geom: Geometry, leaf_size: int = 4, branching: int = 2) -> FlatBVH
             # Split into up to `branching` children via recursive SAH
             # splits, largest group first, REPLACED IN PLACE (stable child
             # order). Splitting one group per step keeps the child count
-            # exactly ≤ branching — the earlier split-every-group rounds
-            # could overshoot to ~2×branching−1, which the 8-wide node
-            # format (widen_bvh) cannot hold.
+            # exactly ≤ branching.
             groups = [idxs]
             while len(groups) < branching:
                 gi_best, sz_best = -1, leaf_size
@@ -191,111 +183,16 @@ def build_bvh(geom: Geometry, leaf_size: int = 4, branching: int = 2) -> FlatBVH
     )
 
 
-class WideBVH(NamedTuple):
-    """8-wide node groups derived from a FlatBVH (same tree, same leaf order).
-
-    One GROUP per internal node holds its ≤8 children's AABBs and metadata
-    contiguously, so a traversal iteration can slab-test all siblings in one
-    batch (kernels/wide_bvh.py). child_kind: 0 = empty slot (inverted box —
-    can never be hit), 1 = internal (child_a = child's group id), 2 = leaf
-    (child_a = tri_start, child_b = tri_count). depth = max stack depth a
-    bitmask-stack traversal needs (root group = id 0).
-    """
-
-    child_min: jnp.ndarray   # (G, 8, 3) f32
-    child_max: jnp.ndarray   # (G, 8, 3) f32
-    child_kind: jnp.ndarray  # (G, 8) i32
-    child_a: jnp.ndarray     # (G, 8) i32
-    child_b: jnp.ndarray     # (G, 8) i32
-    order: jnp.ndarray       # (T,) i32 — same reorder as the source FlatBVH
-    depth: int
-
-
-def widen_bvh(bvh: FlatBVH, max_children: int = 8) -> WideBVH:
-    """Group each internal node's children into one wide node (host, numpy).
-
-    Children are stored in pre-order (slot 0 = leftmost), so a traversal that
-    pops the lowest set stack bit visits leaves in EXACTLY the pre-order the
-    skip-link walk uses — outputs stay bitwise-identical (extra speculative
-    leaf visits can never win a best-hit: any triangle in a prunable box has
-    t ≥ the box's t_near ≥ best_t)."""
-    skip = np.asarray(bvh.skip)
-    start = np.asarray(bvh.tri_start)
-    count = np.asarray(bvh.tri_count)
-    nmin = np.asarray(bvh.nodes_min)
-    nmax = np.asarray(bvh.nodes_max)
-    n = skip.shape[0]
-    internal = count == 0
-
-    if n == 1 or not internal[0]:
-        # Degenerate single-leaf tree: one group whose slot 0 is the leaf.
-        cmin = np.full((1, max_children, 3), 1e30, np.float32)
-        cmax = np.full((1, max_children, 3), -1e30, np.float32)
-        kind = np.zeros((1, max_children), np.int32)
-        a = np.zeros((1, max_children), np.int32)
-        b = np.zeros((1, max_children), np.int32)
-        cmin[0, 0] = nmin[0]
-        cmax[0, 0] = nmax[0]
-        kind[0, 0] = 2
-        a[0, 0] = start[0]
-        b[0, 0] = count[0]
-        return WideBVH(jnp.asarray(cmin), jnp.asarray(cmax),
-                       jnp.asarray(kind), jnp.asarray(a), jnp.asarray(b),
-                       bvh.order, 1)
-
-    gid = -np.ones(n, np.int64)
-    g = 0
-    for i in range(n):
-        if internal[i]:
-            gid[i] = g
-            g += 1
-    cmin = np.full((g, max_children, 3), 1e30, np.float32)
-    cmax = np.full((g, max_children, 3), -1e30, np.float32)
-    kind = np.zeros((g, max_children), np.int32)
-    a = np.zeros((g, max_children), np.int32)
-    b = np.zeros((g, max_children), np.int32)
-    depth = np.zeros(g, np.int64)  # filled bottom-up below (children first? no: compute after)
-
-    for i in range(n):
-        if not internal[i]:
-            continue
-        gi = gid[i]
-        c = i + 1
-        slot = 0
-        while c < skip[i]:
-            assert slot < max_children, (
-                f"node {i} has >{max_children} children — build with "
-                f"branching <= {max_children}")
-            cmin[gi, slot] = nmin[c]
-            cmax[gi, slot] = nmax[c]
-            if internal[c]:
-                kind[gi, slot] = 1
-                a[gi, slot] = gid[c]
-            else:
-                kind[gi, slot] = 2
-                a[gi, slot] = start[c]
-                b[gi, slot] = count[c]
-            c = skip[c]
-            slot += 1
-
-    # Stack depth: groups are numbered in pre-order, so children have larger
-    # ids — one reverse sweep computes subtree depths.
-    for gi in range(g - 1, -1, -1):
-        d = 1
-        for slot in range(max_children):
-            if kind[gi, slot] == 1:
-                d = max(d, 1 + int(depth[a[gi, slot]]))
-        depth[gi] = d
-
-    return WideBVH(jnp.asarray(cmin), jnp.asarray(cmax), jnp.asarray(kind),
-                   jnp.asarray(a), jnp.asarray(b), bvh.order, int(depth[0]))
-
-
 def reorder_geometry(geom: Geometry, bvh: FlatBVH) -> Geometry:
-    """Geometry permuted into BVH leaf order (dense leaf ranges for the kernels)."""
+    """Geometry permuted into BVH leaf order (dense leaf ranges)."""
     o = bvh.order
     return Geometry(p1=geom.p1[o], p2=geom.p2[o], p3=geom.p3[o],
                     mat_id=geom.mat_id[o])
+
+
+def _dot(a, b):
+    # HIGHEST: a GPU may otherwise run f32 products in TF32 (~3 digits).
+    return jnp.dot(a, b, precision=jax.lax.Precision.HIGHEST)
 
 
 def _ray_box_hit(o, inv_d, bmin, bmax, t_best):
@@ -340,14 +237,14 @@ def intersect_bvh_one(o, d, bvh: FlatBVH, rgeom: Geometry, t_max=1e20):
                 e1 = rgeom.p2[j] - rgeom.p1[j]
                 e2 = rgeom.p3[j] - rgeom.p1[j]
                 pvec = jnp.cross(d, e2)
-                det = jnp.dot(e1, pvec)
+                det = _dot(e1, pvec)
                 front = det >= 1e-8
                 inv_det = 1.0 / jnp.where(front, det, 1.0)
                 tvec = o - rgeom.p1[j]
-                u = jnp.dot(tvec, pvec) * inv_det
+                u = _dot(tvec, pvec) * inv_det
                 qvec = jnp.cross(tvec, e1)
-                v = jnp.dot(d, qvec) * inv_det
-                t = jnp.dot(e2, qvec) * inv_det
+                v = _dot(d, qvec) * inv_det
+                t = _dot(e2, qvec) * inv_det
                 ok = (front & (u >= 0) & (u <= 1) & (v >= 0) & (u + v <= 1)
                       & (t > 0) & (t < t_best))
                 return jnp.where(ok, t, t_best), jnp.where(ok, j, best)

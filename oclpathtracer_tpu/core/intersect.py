@@ -11,8 +11,9 @@ GenerateColors.cl:89-135) including its quirks:
     (intersectWorld, GenerateColors.cl:137-154) ≡ first-argmin.
 
 Design: instead of the reference's per-ray sequential scan, we broadcast
-(N rays × T triangles) and reduce with argmin — a pure vector computation XLA maps
-onto the VPU with no divergence. The Pallas kernels in `kernels/` tile the same math.
+(N rays × T triangles) and reduce with argmin — a pure vector computation XLA
+fuses with no divergence. The Pallas kernels in `kernels/` run the same math per
+lane.
 """
 
 from __future__ import annotations

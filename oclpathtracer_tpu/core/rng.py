@@ -2,7 +2,7 @@
 
 Two samplers:
 
-1. **Counter-based threefry (default).** The TPU-native design keys every uniform draw
+1. **Counter-based threefry (default).** This design keys every uniform draw
    by (base seed, sample index, absolute pixel id). That makes sample streams bitwise
    reproducible regardless of sharding layout, batch order, or device count — the
    north-star requirement (SURVEY.md §7 hard-part 4). The reference cannot do this:
@@ -44,8 +44,7 @@ def ref_next_float(state: jnp.ndarray):
     to float via u32 * 2^-32. Returns (new_state, f32 in [0, 1)).
 
     Delegates to kernels/rng.next_float — the SAME code runs inside Pallas kernel
-    bodies, which keeps the jnp parity integrator and the megakernel bit-identical
-    (the u32→f32 conversion there avoids a cast Mosaic doesn't implement).
+    bodies, which keeps the jnp parity integrator and the megakernel bit-identical.
     """
     from oclpathtracer_tpu.kernels import rng as krng
 

@@ -1,12 +1,12 @@
 """Fast differentiable rendering: Pallas forward, exact backward via the jnp twin.
 
-The Pallas megakernel has no AD rule (Mosaic kernels aren't traced by JAX's
+The Pallas megakernel has no AD rule (a compiled kernel is opaque to JAX's
 autodiff). But the jnp parity integrator (integrators/parity.py) computes the SAME
 function of the scene parameters — identical RNG streams, identical math, equal to
 float tolerance (pinned by tests/test_kernels.py). So a custom_vjp can run the
 kernel on the forward pass and differentiate the twin on the backward pass: the
 returned gradient is the true gradient of what the forward computed (up to float
-noise), with the forward at kernel speed (~25× the jnp forward on TPU).
+noise), with the forward at kernel speed.
 
 The scene→table packing is reimplemented in jnp (pack_scene_table) so the forward
 works on traced parameter values inside jit; its gradient is never needed (the
@@ -178,9 +178,9 @@ def make_kernel_train_step(scene: Scene, cfg: RenderConfig, spp: int,
     unbiased pairwise form (make_unbiased_loss_fn rationale) on two disjoint
     reference-frame ranges; gradients come from the adjoint megakernel's exact
     path-space derivative (kernels/grad_megakernel.py) — no jnp twin anywhere,
-    so the whole step runs at kernel throughput (BASELINE.md "train step").
+    so the whole step runs at kernel throughput.
     Requires tp_scan_supported(scene); parameter updates never recompile
-    (class attrs are a dynamic SMEM input).
+    (class attrs are a dynamic table input).
     """
     loss_and_grads = _kernel_loss_and_grads(scene, cfg, spp)
 
@@ -228,7 +228,6 @@ def make_sharded_kernel_train_step(scene: Scene, cfg: RenderConfig, mesh,
     communication), with the adjoint kernel running per-shard on absolute
     pixel ids (pid_base), so gradients are layout-invariant.
     """
-    from jax.experimental.shard_map import shard_map
     from jax.sharding import PartitionSpec as P
 
     from oclpathtracer_tpu.kernels.grad_megakernel import (
@@ -270,10 +269,10 @@ def make_sharded_kernel_train_step(scene: Scene, cfg: RenderConfig, mesh,
         emissive = jnp.maximum(params.emissive - lr * g[:, 3:6], 0.0)
         return ClassParams(albedo=albedo, emissive=emissive), loss
 
-    sharded = shard_map(
+    sharded = jax.shard_map(
         local_step, mesh=mesh,
         in_specs=(P(), P(TILE_AXIS), P()),
         out_specs=(P(), P()),
-        check_rep=False,
+        check_vma=False,
     )
     return jax.jit(sharded)

@@ -4,7 +4,8 @@ The trainable subset of the scene is a small pytree (SceneParams) grafted back i
 the full Scene before each forward render. Gradients flow through the integrator's
 material gathers and the intersection geometry; under the tile-sharded mesh each
 device differentiates its own pixel strip and parameter grads all-reduce with
-jax.lax.psum over ICI (SURVEY.md §5.8 — the design the reference has no analogue of).
+jax.lax.psum, over NVLink between the cards of one host (SURVEY.md §5.8 — the
+design the reference has no analogue of).
 """
 
 from __future__ import annotations
@@ -14,7 +15,6 @@ from typing import Callable, NamedTuple, Optional
 
 import jax
 import jax.numpy as jnp
-from jax.experimental.shard_map import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
 from oclpathtracer_tpu.config import RenderConfig
@@ -189,7 +189,7 @@ def make_sharded_train_step(scene: Scene, cfg: RenderConfig, mesh: Mesh,
 
     (params, target_sharded, pixel_ids_sharded, step_idx, key) → (params, loss).
     The psum is the ONLY collective — exactly the gradient all-reduce the north star
-    specifies, riding ICI (SURVEY.md §5.8).
+    specifies (SURVEY.md §5.8).
     """
     n_total = cfg.n_pixels
 
@@ -206,12 +206,12 @@ def make_sharded_train_step(scene: Scene, cfg: RenderConfig, mesh: Mesh,
         )
         return loss, grads
 
-    sharded = shard_map(
+    sharded = jax.shard_map(
         local_grads,
         mesh=mesh,
         in_specs=(P(), P(), P(TILE_AXIS), P(TILE_AXIS), P()),
         out_specs=(P(), P()),
-        check_rep=False,
+        check_vma=False,
     )
 
     @jax.jit

@@ -10,7 +10,7 @@ lies behind — and plain AD sees none of it (emission pickup is piecewise
 constant in the vertices: `radiance += mask·emissive·3`, GenerateColors.cl:241,
 with no geometric factor). Round 4 measured this as the dominant error in the
 Cornell light's vertex gradients (diff/edge.py bias note); this module supplies
-the missing term (VERDICT r4 item 1).
+the missing term.
 
 Derivation. At a depth-b path vertex x with incoming direction d and
 throughput m_{b-1}, the remaining pixel contribution is
@@ -35,7 +35,7 @@ bounce budget, so occlusion of the rim (a box between x and the light) makes
 ΔL ≈ 0 automatically — correctness comes from the estimator, not a
 classifier, exactly like the primary module.
 
-Scope and estimator structure (TPU-first: every shape static):
+Scope and estimator structure (every shape static):
   * rim set = edges of a STATIC triangle subset (default: the emissive
     triangles — the one rim whose motion plain AD + primary edges provably
     miss; occluder secondary silhouettes can be added by passing their ids);
@@ -214,9 +214,11 @@ def _secondary_grads(scene: Scene, cfg: RenderConfig, weight: jnp.ndarray,
         # ---- closed-form velocity pullback, summed over prefixes
         per = coeff / safe_r                                    # (N, R)
         dA_acc = dA_acc + jnp.einsum(
-            "nr,nrk->rk", per * (1.0 - s_flat)[None], nh).reshape(E, S, 3).sum(1)
+            "nr,nrk->rk", per * (1.0 - s_flat)[None], nh,
+            precision=jax.lax.Precision.HIGHEST).reshape(E, S, 3).sum(1)
         dB_acc = dB_acc + jnp.einsum(
-            "nr,nrk->rk", per * s_flat[None], nh).reshape(E, S, 3).sum(1)
+            "nr,nrk->rk", per * s_flat[None], nh,
+            precision=jax.lax.Precision.HIGHEST).reshape(E, S, 3).sum(1)
 
         # ---- extend the prefix one CRN-sampled bounce
         if depth < depth_cap:

@@ -1,10 +1,9 @@
 """Kernel-speed VERTEX training — Pallas forwards AND Pallas boundary probes.
 
-Round 4's adjoint megakernel made albedo/emissive training 13.4× faster but
-vertex gradients stayed on the all-jnp path: the edge estimators' L_in/L_out
-radiance probes went through the ~16 Mrays/s jnp integrator and the forward
-renders did too (VERDICT r4 weak-point 1). This module assembles the vertex
-step from kernel-speed parts:
+The adjoint megakernel covers albedo/emissive training, but vertex gradients
+need the edge estimators' L_in/L_out radiance probes and forward renders. On
+the all-jnp path both go through the plain integrator. This module assembles
+the vertex step from kernel-speed parts:
 
   * forward renders: the fused megakernel on a jnp-packed (traceable) parity
     table — vertex updates flow into the table without re-tracing

@@ -1,10 +1,9 @@
 """Adjoint megakernel — material gradients at kernel speed.
 
-The north star asks for "forward+backward intersection kernels at speed-of-light
-utilization". diff/fast.py gets kernel-speed FORWARDS but its backward is AD
-through the ~16 Mrays/s jnp twin — a ~60× gap. This kernel closes it for the
-parameters production training actually optimizes (material albedo/emissive)
-by HAND-DERIVING the path-space derivative and accumulating it inside the same
+diff/fast.py gets kernel-speed FORWARDS, but AD through the jnp twin stores
+every bounce's residuals for its backward. This kernel computes the gradient for
+the parameters production training optimizes (material albedo/emissive) by
+HAND-DERIVING the path-space derivative and accumulating it inside the same
 fused bounce loop the forward uses — no AD, no stored path state, one pass.
 
 Derivation. Along a path, radiance = Σ_b T_b with T_b = mask_b ⊙ e_b, where
@@ -29,19 +28,23 @@ nonnegative terms at physical parameters (albedo, emissive ≥ 0), so the clamp
 never binds and its subgradient is 1; finite differences that step a zero
 attribute NEGATIVE do cross the clamp and will read half the slope (this is
 FD stepping outside the physical domain, not a kernel error — perturb upward
-there). Carried state grows by C×3 tiles (P_c); gradients accumulate straight
-into the output VMEM block, so they are not loop carries.
+there).
+
+On the GPU each lane carries its P_c and its own gradient sums in registers;
+w is constant per lane, so it multiplies the lane's sums once at the end, and
+the block reduces its lanes to one row of C×6 sums. Blocks carry nothing
+between them; the rows are summed outside the kernel.
 
 Class parameters, not per-material: the kernel differentiates w.r.t. the ≤16
 deduplicated material CLASSES (megakernel.material_classes — the Cornell scene
-trains 5), whose albedo/emissive arrive as a DYNAMIC (C, 8) SMEM table
+trains 5), whose albedo/emissive arrive as a DYNAMIC (C, 8) table
 (class_table) rather than the tp scan's baked constants — so a training step
 never recompiles. Map class grads to per-material grads by summing over the
 class's members if needed (chain rule of the class→material broadcast).
 
-Restrictions (documented): requires tp_scan_supported(scene) (the scan tracks
-a class code); vertex gradients stay on the jnp + edge-sampling path
-(diff/edge.py) — geometry terms do not factor through the mask product.
+Restrictions: requires tp_scan_supported(scene) (the scan tracks a class
+code); vertex gradients stay on the jnp + edge-sampling path (diff/edge.py) —
+geometry terms do not factor through the mask product.
 """
 
 from __future__ import annotations
@@ -52,34 +55,25 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from oclpathtracer_tpu.config import RenderConfig
-from oclpathtracer_tpu.kernels import rng as krng
 from oclpathtracer_tpu.kernels.megakernel import (
     BLOCK,
-    INV_PI,
-    LANE,
-    SUB,
-    TWO_PI,
-    T_MAX,
     TABLE_COLS,
-    _add3,
-    _camera_constants,
     _cross3,
-    _dot3,
-    _interpret,
-    _neg3,
-    _normalize3,
-    _safe_denom,
-    _scale3,
-    _where3,
+    _scalars,
+    call_kernel,
+    camera_path,
+    decode_tp_tc,
+    flat_table,
+    lane_ids,
+    lane_planes,
     material_classes,
     pack_scene_tp,
-    pad_table,
-    resolve_tri_unroll,
+    shade,
+    tp_fresh,
     tp_scan_supported,
-    tri_scan,
+    tri_tp,
 )
 from oclpathtracer_tpu.scene.types import Scene
 
@@ -112,55 +106,19 @@ def prepare_grad_scene(scene: Scene):
     return table, pack_class_table(classes), len(classes), jnp.asarray(mat_class)
 
 
-def resolve_grad_interleave(n_samples: int, with_grads: bool,
-                            requested: int = 0) -> int:
-    """0 = auto: the widest sample interleave that divides n_samples, capped
-    by register pressure. Measured (v5e, 512², 4-bounce, 16 spp, paired
-    medians vs il=1): forward il=8 +7.9%; ADJOINT il=2 flat (1.000), il=4
-    −1.3% — the C×3 carried P tiles per stream eat the register headroom the
-    extra streams need, so the adjoint stays at 1 (which also keeps its
-    accumulation order trivially deterministic)."""
-    if requested:
-        return requested
-    if with_grads:
-        return 1
-    for k in (8, 4, 2):
-        if n_samples % k == 0:
-            return k
-    return 1
-
-
 def _make_kernel(cfg: RenderConfig, n_tris: int, n_samples: int, n_classes: int,
-                 tri_unroll: int = 0, with_grads: bool = True,
-                 interleave: int = 0):
+                 with_grads: bool = True):
     """Kernel body: dynamic-class tp forward; with_grads adds the adjoint.
 
     with_grads=False is the dynamic-class FORWARD (used for the pairwise
-    loss's two renders before weights exist): bitwise-identical image to the
-    tp-scan megakernel at interleave=1, but with albedo/emissive as runtime
-    inputs, so parameter updates never recompile. The image is
-    bitwise-invariant in `interleave` (grad sums are order-sensitive only at
-    float rounding; they carry no bitwise contract)."""
-    tri_unroll = resolve_tri_unroll(n_tris, tri_unroll)
-    auto_il = interleave == 0
-    interleave = resolve_grad_interleave(n_samples, with_grads, interleave)
-    if auto_il and _interpret():
-        interleave = min(interleave, 2)  # bound trace time off-TPU
-    if n_samples % interleave:
-        raise ValueError(f"interleave {interleave} must divide {n_samples}")
+    loss's two renders before weights exist): the same image as the tp-scan
+    megakernel, but with albedo/emissive as runtime inputs, so parameter
+    updates never recompile."""
     C = n_classes
-    W, H = cfg.width, cfg.height
-    bounces = cfg.bounces
-    view, hol, upd, angle, eye = _camera_constants(cfg)
-    aspect = np.float32(W / H)
     bg = tuple(np.float32(c) for c in cfg.bg_color)
     eboost = np.float32(cfg.emissive_boost)
-    roffset = np.float32(cfg.ray_offset)
 
-    def kernel(table_ref, class_ref, start_ref, base_ref, *rest):
-        # with_grads: rest = (weight_ref, out_ref, grad_ref); pure forward:
-        # rest = (out_ref,) — no loss-weight input, no uninitialized (nb, C,
-        # 6, SUB, LANE) grad block copied back per call (ADVICE r4).
+    def kernel(table_ref, class_ref, scal_ref, *rest):
         if with_grads:
             weight_ref, out_ref, grad_ref = rest
         else:
@@ -172,250 +130,91 @@ def _make_kernel(cfg: RenderConfig, n_tris: int, n_samples: int, n_classes: int,
         def cl(c, k):
             return class_ref[c * CLASS_COLS + k]
 
-        b = pl.program_id(0)
-        sub_ids = jax.lax.broadcasted_iota(jnp.int32, (SUB, LANE), 0)
-        lane_ids = jax.lax.broadcasted_iota(jnp.int32, (SUB, LANE), 1)
-        pid = base_ref[0] + b * BLOCK + sub_ids * LANE + lane_ids
-        px = (pid % W).astype(jnp.float32)
-        py = (pid // W).astype(jnp.float32)
-        vzero = pid.astype(jnp.float32) * 0.0
-        vone = vzero + 1.0
-        zeros, ones = vzero, vone
+        classes = tuple(((cl(i, 0), cl(i, 1), cl(i, 2)),
+                         (cl(i, 3), cl(i, 4), cl(i, 5)), cl(i, 6), cl(i, 7))
+                        for i in range(C))
+        pid = lane_ids(scal_ref[1])
+        zeros = jnp.zeros((BLOCK,), jnp.float32)
+        zero3 = (zeros, zeros, zeros)
 
-        # Zero-init the accumulated outputs (grad_ref accumulates per bounce).
-        out_ref[0, 0] = vzero
-        out_ref[0, 1] = vzero
-        out_ref[0, 2] = vzero
-        if with_grads:
-            # Loss weights for this block's lanes (3 channels).
-            wgt = (weight_ref[0, 0], weight_ref[0, 1], weight_ref[0, 2])
+        def bounce_cond(carry):
+            b, path = carry[0], carry[1]
+            return (b < cfg.bounces) & (jnp.max(path[4]) > 0.5)
+
+        def bounce_body(carry):
+            b, path, sg, P, G = carry
+            sg = sg + path[4]
+            o, d, mask = path[0], path[1], path[2]
+            m = _cross3(o, d)
+            tc = jax.lax.fori_loop(
+                0, n_tris, lambda j, tc: tri_tp(tl, j, o, d, m, tc),
+                tp_fresh(zeros))
+            hit = decode_tp_tc(tc, classes)
+            path, (active, miss, _, qf, alive) = shade(cfg, path, hit)
+            if not with_grads:
+                return b + 1, path, sg, P, G
+            balb, bemi = hit[2], hit[3]
+            # ∂loss contributions of this bounce's emission terms (per unit
+            # loss weight): e_b = bemi·boost (hit) or bg (miss); ∂T_b/∂albedo_c
+            # = P_c·e_b, ∂T_b/∂emissive_c = mask·boost·[hit class = c].
+            e_vec = tuple(jnp.where(active, bemi[ch] * eboost, 0.0)
+                          + jnp.where(miss, bg[ch], 0.0) for ch in range(3))
+            newP, newG = [], []
             for c in range(C):
-                for k in range(6):
-                    grad_ref[0, c, k] = vzero
-
-        def start_path(sample_idx):
-            state = krng.seed_from(pid, sample_idx)
-            state, u1 = krng.next_float(state)
-            state, u2 = krng.next_float(state)
-            x = px + u1 - 0.5
-            y = py + u2 - 0.5
-            sx = (2.0 * ((x + 0.5) * (1.0 / W)) - 1.0) * angle * aspect
-            sy = -(1.0 - 2.0 * ((y + 0.5) * (1.0 / H))) * angle
-            d = _normalize3((sx * hol[0] - sy * upd[0] + view[0],
-                             sx * hol[1] - sy * upd[1] + view[1],
-                             sx * hol[2] - sy * upd[2] + view[2]))
-            o = (vzero + eye[0], vzero + eye[1], vzero + eye[2])
-            P = tuple((zeros, zeros, zeros) for _ in range(C)) \
-                if with_grads else ()
-            return (o, d, (ones, ones, ones), (zeros, zeros, zeros), vone,
-                    state, P)
-
-        def tri_body_tp(j, tc, m, o, d):
-            """Same triple-product scan as megakernel.tri_body_tp."""
-            nv = (tl(j, 0), tl(j, 1), tl(j, 2))
-            e1 = (tl(j, 3), tl(j, 4), tl(j, 5))
-            e2 = (tl(j, 6), tl(j, 7), tl(j, 8))
-            c1 = (tl(j, 9), tl(j, 10), tl(j, 11))
-            c2 = (tl(j, 12), tl(j, 13), tl(j, 14))
-            kk = tl(j, 15)
-            code = tl(j, 16)
-            bnum, bden, bN, bcode = tc
-            det = _dot3(d, nv)
-            tnum = kk - _dot3(o, nv)
-            unum = _dot3(e2, m) - _dot3(d, c1)
-            vnum = _dot3(d, c2) - _dot3(e1, m)
-            inside = jnp.minimum(jnp.minimum(unum, vnum),
-                                 det - (unum + vnum)) >= 0.0
-            sel = ((det >= 1e-8) & inside & (tnum > 0.0)
-                   & (tnum * bden < bnum * det))
-            bnum = jnp.where(sel, tnum, bnum)
-            bden = jnp.where(sel, det, bden)
-            bN = _where3(sel, (vzero + nv[0], vzero + nv[1], vzero + nv[2]), bN)
-            bcode = jnp.where(sel, code, bcode)
-            return bnum, bden, bN, bcode
-
-        def decode_dynamic(tc):
-            """decode_tp_tc with attributes gathered from the SMEM class table
-            (runtime values — the whole point of this kernel)."""
-            bnum, bden, bN, bcode = tc
-            best_t = bnum / bden
-            inv = 1.0 / jnp.sqrt(jnp.maximum(_dot3(bN, bN), 1e-40))
-            bn = _scale3(bN, inv)
-            balb = (zeros, zeros, zeros)
-            bemi = (zeros, zeros, zeros)
-            brough = zeros
-            bmty = vone
-            sels = []
-            for i in range(C):
-                sel = jnp.abs(bcode - (i + 1.0)) < 0.5
-                sels.append(sel)
-                balb = _where3(sel, (vzero + cl(i, 0), vzero + cl(i, 1),
-                                     vzero + cl(i, 2)), balb)
-                bemi = _where3(sel, (vzero + cl(i, 3), vzero + cl(i, 4),
-                                     vzero + cl(i, 5)), bemi)
-                brough = jnp.where(sel, cl(i, 6), brough)
-                bmty = jnp.where(sel, cl(i, 7), bmty)
-            return best_t, bn, balb, bemi, brough, bmty, sels
-
-        def shade_one(path, tc):
-            """megakernel.shade_one + the adjoint accumulations (cited there)."""
-            o, d, mask, rad, active_f, state, P = path
-            active = active_f > 0.5
-            best_t, bn, balb, bemi, brough, bmty, sels = decode_dynamic(tc)
-            hit = best_t < T_MAX
-
-            miss = active & ~hit
-            rad = (rad[0] + jnp.where(miss, mask[0] * bg[0], 0.0),
-                   rad[1] + jnp.where(miss, mask[1] * bg[1], 0.0),
-                   rad[2] + jnp.where(miss, mask[2] * bg[2], 0.0))
-            active = active & hit
-
-            rad = (rad[0] + jnp.where(active, mask[0] * bemi[0] * eboost, 0.0),
-                   rad[1] + jnp.where(active, mask[1] * bemi[1] * eboost, 0.0),
-                   rad[2] + jnp.where(active, mask[2] * bemi[2] * eboost, 0.0))
-
-            if with_grads:
-                # ∂loss contributions of this bounce's emission terms:
-                # e_b = bemi·boost (hit) or bg (miss); ∂T_b/∂albedo_c = P_c·e_b,
-                # ∂T_b/∂emissive_c = mask·boost·[hit class = c].
-                e_vec = tuple(
-                    jnp.where(active, bemi[ch] * eboost, 0.0)
-                    + jnp.where(miss, vzero + bg[ch], 0.0)
-                    for ch in range(3))
-                for c in range(C):
-                    selc = jnp.where(sels[c] & active, 1.0, 0.0)
-                    for ch in range(3):
-                        grad_ref[0, c, ch] = (grad_ref[0, c, ch]
-                                              + wgt[ch] * P[c][ch] * e_vec[ch])
-                        grad_ref[0, c, 3 + ch] = (
-                            grad_ref[0, c, 3 + ch]
-                            + wgt[ch] * mask[ch] * eboost * selc)
-
-            n = _where3(_dot3(bn, d) < 0.0, bn, _neg3(bn))
-            wo = _neg3(d)
-
-            state, ud1 = krng.next_float(state)
-            state, ud2 = krng.next_float(state)
-
-            use_y = jnp.abs(n[0]) > 0.001
-            axis = _where3(use_y, (zeros, ones, zeros), (ones, zeros, zeros))
-            tt = _normalize3(_cross3(axis, n))
-            ss = _cross3(n, tt)
-
-            phi = TWO_PI * ud1
-            cphi = jnp.cos(phi)
-            sphi = jnp.sin(phi)
-
-            sin_d = jnp.sqrt(ud2)
-            cos_d = jnp.sqrt(1.0 - ud2)
-            wi_d = _normalize3(_add3(_add3(
-                _scale3(ss, cphi * sin_d), _scale3(tt, sphi * sin_d)),
-                _scale3(n, cos_d)))
-            pdf_d = _dot3(wi_d, n) * INV_PI
-            q_d = vzero + INV_PI  # f_d = balb·INV_PI
-
-            r2 = brough * brough
-            cos_h = jnp.sqrt(
-                (1.0 - ud2) / jnp.maximum(ud2 * (r2 - 1.0) + 1.0, 1e-12))
-            sin_h = jnp.sqrt(jnp.maximum(0.0, 1.0 - cos_h * cos_h))
-            wh = _normalize3(_add3(_add3(
-                _scale3(ss, cphi * sin_h), _scale3(tt, sphi * sin_h)),
-                _scale3(n, cos_h)))
-            wi_s = _add3(_neg3(wo), _scale3(wh, 2.0 * _dot3(wo, wh)))
-            same_hemi = _dot3(wi_s, n) * _dot3(wo, n) >= 0.0
-            denom_ndf = cos_h * cos_h * (r2 - 1.0) + 1.0
-            d_ndf = r2 * INV_PI / jnp.maximum(denom_ndf * denom_ndf, 1e-12)
-            pdf_s = d_ndf * cos_h / _safe_denom(4.0 * _dot3(wo, wh))
-            fs_scalar = d_ndf / _safe_denom(
-                4.0 * _dot3(wi_s, n) * _dot3(wo, n)) * 2.0  # ×2 quirk :217
-            pdf_s = jnp.where(same_hemi, pdf_s, 0.0)
-            q_s = jnp.where(same_hemi, fs_scalar, 0.0)  # f_s = balb·q_s
-
-            bspec = bmty >= 1.5
-            wi = _where3(bspec, wi_s, wi_d)
-            pdf = jnp.where(bspec, pdf_s, pdf_d)
-            q = jnp.where(bspec, q_s, q_d)
-
-            alive = active & (pdf > 0.0)
-            safe_pdf = jnp.where(pdf > 0.0, pdf, 1.0)
-            factor = _dot3(wi, n) / safe_pdf
-            # f = balb⊙q; mask' = (mask⊙f)·factor — the exact multiplication
-            # order of megakernel.shade_one:890, so the forward is BITWISE
-            # equal to the tp-scan megakernel (interleave=1, tp0 off).
-            f = (balb[0] * q, balb[1] * q, balb[2] * q)
-            new_mask = (jnp.where(alive, mask[0] * f[0] * factor, mask[0]),
-                        jnp.where(alive, mask[1] * f[1] * factor, mask[1]),
-                        jnp.where(alive, mask[2] * f[2] * factor, mask[2]))
-
-            if with_grads:
-                qf = q * factor
+                sel = jnp.abs(tc[3] - (c + 1.0)) < 0.5
+                sel_act = jnp.where(sel & active, eboost, 0.0)
+                newG.append(tuple(G[c][ch] + P[c][ch] * e_vec[ch]
+                                  for ch in range(3))
+                            + tuple(G[c][3 + ch] + mask[ch] * sel_act
+                                    for ch in range(3)))
                 # Product rule for P_c = ∂mask/∂albedo_c (division-free):
                 # P_c' = (P_c ⊙ albedo_hit + [hit=c]·mask) ⊙ qf on alive lanes.
-                newP = []
-                for c in range(C):
-                    selc = jnp.where(sels[c], 1.0, 0.0)
-                    newP.append(tuple(
-                        jnp.where(alive,
-                                  (P[c][ch] * balb[ch] + selc * mask[ch]) * qf,
-                                  P[c][ch])
-                        for ch in range(3)))
-                P = tuple(newP)
+                selc = jnp.where(sel, 1.0, 0.0)
+                newP.append(tuple(
+                    jnp.where(alive, (P[c][ch] * balb[ch] + selc * mask[ch])
+                              * qf, P[c][ch]) for ch in range(3)))
+            return b + 1, path, sg, tuple(newP), tuple(newG)
 
-            hitp = _add3(o, _scale3(d, best_t))
-            o = _add3(hitp, _scale3(wi, roffset))
-            d = _where3(alive, wi, d)
-            return (o, d, new_mask, rad, jnp.where(alive, vone, vzero),
-                    state, P)
+        def sample_body(s, acc):
+            r0, g0, b0, sg, G = acc
+            P = tuple(zero3 for _ in range(C)) if with_grads else ()
+            _, path, sg, _, G = jax.lax.while_loop(
+                bounce_cond, bounce_body,
+                (jnp.int32(0), camera_path(cfg, pid, scal_ref[0] + s), sg, P,
+                 G))
+            rad = path[3]
+            return (r0 + jnp.maximum(rad[0], 0.0),
+                    g0 + jnp.maximum(rad[1], 0.0),
+                    b0 + jnp.maximum(rad[2], 0.0), sg, G)
 
-        # `interleave` samples step the bounce loop together: k independent
-        # scan/P-update chains give the VPU instruction-level parallelism
-        # (megakernel.resolve_interleave rationale). Accumulation order over
-        # samples is unchanged (group-major, in-group ascending) — the image
-        # is bitwise-invariant in k; grad accumulation into grad_ref follows
-        # the same order.
-        def group_body(g, acc):
-            r0, g0, b0 = acc
-            paths = [start_path(start_ref[0] + g * interleave + i)
-                     for i in range(interleave)]
-
-            def bounce_body(_, carry):
-                paths = carry
-                out = []
-                for path in paths:
-                    o, d = path[0], path[1]
-                    m = _cross3(o, d)
-                    tc = tri_scan(lambda j, t: tri_body_tp(j, t, m, o, d),
-                                  (vzero + T_MAX, vone,
-                                   (zeros, zeros, zeros), zeros),
-                                  n_tris, tri_unroll)
-                    out.append(shade_one(path, tc))
-                return tuple(out)
-
-            paths = jax.lax.fori_loop(0, bounces, bounce_body, tuple(paths))
-            for path in paths:
-                rad = path[3]
-                r0 = r0 + jnp.maximum(rad[0], 0.0)
-                g0 = g0 + jnp.maximum(rad[1], 0.0)
-                b0 = b0 + jnp.maximum(rad[2], 0.0)
-            return r0, g0, b0
-
-        acc = jax.lax.fori_loop(0, n_samples // interleave, group_body,
-                                (zeros, zeros, zeros))
-        out_ref[0, 0] = acc[0]
-        out_ref[0, 1] = acc[1]
-        out_ref[0, 2] = acc[2]
+        G0 = (tuple(zero3 + zero3 for _ in range(C)) if with_grads else ())
+        acc = jax.lax.fori_loop(0, n_samples, sample_body,
+                                (zeros, zeros, zeros, zeros, G0))
+        for c in range(4):
+            out_ref[c, :] = acc[c]
+        if with_grads:
+            # Loss weights (per lane, per channel) times the lane's sums,
+            # reduced over the block into one row of C×6 (padded) entries.
+            w = (weight_ref[0, :], weight_ref[1, :], weight_ref[2, :])
+            slot = jax.lax.broadcasted_iota(jnp.int32, (1, grad_ref.shape[1]),
+                                            1)
+            row = jnp.zeros((1, grad_ref.shape[1]), jnp.float32)
+            for c in range(C):
+                for k in range(6):
+                    s = jnp.sum(w[k % 3] * acc[4][c][k])
+                    row = jnp.where(slot == c * 6 + k, s, row)
+            grad_ref[...] = row
 
     return kernel
 
 
 @functools.partial(jax.jit, static_argnames=("cfg", "n_samples", "n_classes",
-                                             "with_grads", "n_rays",
-                                             "interleave"))
+                                             "with_grads", "n_rays"))
 def render_grads_pallas(table: jnp.ndarray, class_table: jnp.ndarray,
                         cfg: RenderConfig, start_sample, n_samples: int,
                         n_classes: int, weight: jnp.ndarray | None = None,
                         with_grads: bool = True, pid_base=0,
-                        n_rays: int | None = None, interleave: int = 0):
+                        n_rays: int | None = None):
     """SUM image of n_samples frames (+ loss gradients w.r.t. class attrs).
 
     weight: (n_rays, 3) = ∂loss/∂I per pixel (pass None with
@@ -426,59 +225,21 @@ def render_grads_pallas(table: jnp.ndarray, class_table: jnp.ndarray,
     pid_base/n_rays: shard_map tiling as in megakernel (absolute-id RNG).
     """
     n_pix = n_rays if n_rays is not None else cfg.n_pixels
-    nb = pl.cdiv(n_pix, BLOCK)
+    n_pad = pl.cdiv(n_pix, BLOCK) * BLOCK
+    nb = n_pad // BLOCK
     C = n_classes
-
-    table = pad_table(table).reshape(-1)
-    kernel = _make_kernel(cfg, int(table.shape[0]) // TABLE_COLS, n_samples, C,
-                          with_grads=with_grads, interleave=interleave)
-    in_specs = [
-        pl.BlockSpec(memory_space=pltpu.SMEM),
-        pl.BlockSpec(memory_space=pltpu.SMEM),
-        pl.BlockSpec(memory_space=pltpu.SMEM),
-        pl.BlockSpec(memory_space=pltpu.SMEM),
-    ]
-    inputs = [table, class_table.reshape(-1),
-              jnp.asarray(start_sample, jnp.int32).reshape(1),
-              jnp.asarray(pid_base, jnp.int32).reshape(1)]
-    out_block = pl.BlockSpec((1, 3, SUB, LANE), lambda i: (i, 0, 0, 0),
-                             memory_space=pltpu.VMEM)
-    out_sds = jax.ShapeDtypeStruct((nb, 3, SUB, LANE), jnp.float32)
-    if with_grads:
-        if weight is None:
-            weight = jnp.zeros((n_pix, 3), jnp.float32)
-        # Inverse of the output layout: (n_pix, 3) → (nb, 3, SUB, LANE) blocks.
-        wpad = jnp.zeros((nb * BLOCK, 3), jnp.float32).at[:n_pix].set(weight)
-        wblocks = wpad.reshape(nb, SUB, LANE, 3).transpose(0, 3, 1, 2)
-        in_specs.append(out_block)
-        inputs.append(wblocks)
-        out, grads = pl.pallas_call(
-            kernel,
-            grid=(nb,),
-            in_specs=in_specs,
-            out_specs=(
-                out_block,
-                pl.BlockSpec((1, C, 6, SUB, LANE), lambda i: (i, 0, 0, 0, 0),
-                             memory_space=pltpu.VMEM),
-            ),
-            out_shape=(
-                out_sds,
-                jax.ShapeDtypeStruct((nb, C, 6, SUB, LANE), jnp.float32),
-            ),
-            interpret=_interpret(),
-        )(*inputs)
-        img = out.transpose(0, 2, 3, 1).reshape(nb * BLOCK, 3)[:n_pix]
-        # Padded lanes carry zero weight, so summing everything is exact.
-        return img, jnp.sum(grads, axis=(0, 3, 4))
-    # Pure dynamic-class forward: no weight input, no grad output (ADVICE r4 —
-    # the uninitialized grad block used to be copied back on every call).
-    out = pl.pallas_call(
-        kernel,
-        grid=(nb,),
-        in_specs=in_specs,
-        out_specs=out_block,
-        out_shape=out_sds,
-        interpret=_interpret(),
-    )(*inputs)
-    img = out.transpose(0, 2, 3, 1).reshape(nb * BLOCK, 3)[:n_pix]
-    return img, None
+    kernel = _make_kernel(cfg, int(table.shape[0]), n_samples, C,
+                          with_grads=with_grads)
+    whole = (flat_table(table), flat_table(class_table),
+             _scalars(start_sample, pid_base))
+    if not with_grads:
+        out = call_kernel(kernel, whole, (), n_pad)
+        return out[:3, :n_pix].T, None
+    if weight is None:
+        weight = jnp.zeros((n_pix, 3), jnp.float32)
+    # Padded lanes carry zero weight, so summing every lane is exact.
+    width = pl.next_power_of_2(C * 6)
+    out, grads = call_kernel(kernel, whole, (lane_planes(weight, n_pad),),
+                             n_pad, extra_out=((1, width), lambda i: (i, 0),
+                                        (nb, width)))
+    return out[:3, :n_pix].T, jnp.sum(grads, axis=0)[:C * 6].reshape(C, 6)

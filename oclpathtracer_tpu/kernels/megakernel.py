@@ -1,25 +1,22 @@
-"""Fused path-trace megakernel (Pallas/TPU).
+"""Fused path-trace megakernel (Pallas; compiled through Triton on the GPU).
 
-One kernel traces ENTIRE paths for a block of 1024 pixels (an (8,128) vector tile —
-each lane is a ray, the VPU's native shape): camera generation, the full bounce loop,
-the 36-triangle scan, BRDF sampling, and multi-sample accumulation all happen on-chip.
+One program traces ENTIRE paths for a 1-D block of `BLOCK` pixels, one lane per
+pixel — the shape of the reference's own kernel (GenerateColors.cl:302-322, one
+work-item per pixel): camera ray, the whole bounce loop, the triangle scan, BRDF
+sampling and the sum over samples all stay in registers. The scene table is read
+by scalar loads from one global-memory ref; every lane of a block reads the same
+row at the same time, so the L1 cache serves it. Device-memory traffic is one
+(4, BLOCK) write per block: three radiance planes and the segment count.
 
-Why this is the TPU-native design (vs the jnp megakernel in integrators/path.py):
-  * the jnp form materializes (N, T, 3) broadcast intermediates in HBM — at 512²
-    rays that's >100 MB per op, making the whole render HBM-bandwidth-bound;
-  * here scene data lives in SMEM (36×24 f32 ≈ 3.5 KB), ray state lives in vector
-    registers/VMEM, and HBM traffic is exactly ONE (8,128,3) radiance write per
-    pixel block per kernel — the kernel is compute-bound on the VPU, which is
-    speed-of-light for this op (no matmuls in ray-triangle math);
-  * gathers (material lookup by hit id) are eliminated: the triangle scan tracks the
-    best hit's attributes incrementally with vector selects — the same trick that
-    makes the scan divergence-free (vs the reference's per-pixel loop exits,
-    SURVEY.md §3.3 "megakernel divergence").
+Why a kernel beside the plain jnp integrator (integrators/path.py): that path
+writes the ray state to device memory at every bounce and materializes (rays ×
+tris) intermediates; here nothing leaves the registers between bounces. Whether
+this pays is measured on the card (PERF.md).
 
 Sample streams are the REFERENCE's exact RNG (kernels/rng.py): seed = pixel_id +
-hash(frame), wang+LCG per draw — so this kernel is bit-comparable with the jnp
-parity integrator (integrators/parity.py) which replays the identical streams, and
-sharding-invariant because pixel ids are absolute.
+hash(frame), wang+LCG per draw — so this kernel is comparable draw for draw with
+the jnp parity integrator (integrators/parity.py), and sharding-invariant
+because pixel ids are absolute.
 
 Semantics ≡ reference traceRays (GenerateColors.cl:223-261) with all quirks:
 backface cull (:100), first-min hit (:144-150), emissive ×3 (:241), GGX ×2 (:217),
@@ -35,14 +32,17 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from oclpathtracer_tpu.config import RenderConfig
 from oclpathtracer_tpu.kernels import rng as krng
+from oclpathtracer_tpu.kernels.route import pallas_params
 from oclpathtracer_tpu.scene.types import Scene
 
-SUB, LANE = 8, 128
-BLOCK = SUB * LANE  # 1024 rays per grid step
+# Pixels per program (one lane each; a power of two for Triton) and warps per
+# program: 256 × 4 was best or within 3% of best for both kernels in a sweep
+# of 128/256/512 lanes × 4/8 warps on the H100 (PERF.md).
+BLOCK = 256
+NUM_WARPS = 4
 
 INV_PI = 0.31830988618
 TWO_PI = 6.28318530718
@@ -55,161 +55,9 @@ T_MAX = 1e20
 #  (0 = "no hit"; requires roughness < 4 — see fast_scan_supported)
 TABLE_COLS = 24
 
-# Fully unrolling the triangle scan lets Mosaic software-pipeline the SMEM scalar
-# loads against the vector math and drop the loop-carry shuffles: measured 1.67×
-# on the 36-tri Cornell megakernel (v5e, 434 → 723 Mrays/s, bitwise-identical
-# output). Mosaic's fori_loop supports only unroll=1 or full unroll, and full
-# unroll's code size grows linearly in n_tris — cap it; big scenes use the BVH
-# kernel anyway.
-TRI_UNROLL_CAP = 128
-
-# Largest table kept in SMEM. A 2-D (T, 24) SMEM ref pads every row to 128
-# lanes (512 B/tri → ~2k tris); flattening to 1-D (T*24,) removes the padding
-# (96 B/tri), so ~8k tris fit in the ~1 MB scalar memory with headroom. Beyond
-# this the table moves to VMEM — correct but latency-bound on scalar element
-# loads (~10× slower scan) — so the driver should prefer the BVH kernel there.
-SMEM_TABLE_MAX_TRIS = 8192
-
-
-def resolve_tri_unroll(n_tris: int, requested: int = 0) -> int:
-    """0 = auto: full unroll for small scenes, rolled loop beyond the cap."""
-    if requested:
-        return requested
-    return n_tris if n_tris <= TRI_UNROLL_CAP else 1
-
-
-# Window width of the manually-unrolled scan for big (VMEM-table) scenes. A
-# bare rolled fori_loop is ~500 cycles/triangle on v5e (each iteration's scalar
-# loads serialize behind the loop-carried best-hit state and Mosaic only unrolls
-# fully or not at all); a Python-unrolled inner window restores pipelining.
-PARTIAL_UNROLL = 128
-
-
-def pad_table(table: jnp.ndarray) -> jnp.ndarray:
-    """Pad a pack_scene table with all-zero rows to the scan-window multiple.
-
-    Zero triangles have det == 0 → backface-culled, so pad rows can never win the
-    best-hit scan; segment counts and images are unchanged."""
-    n = table.shape[0]
-    if n <= TRI_UNROLL_CAP:
-        return table
-    pad = (-n) % PARTIAL_UNROLL
-    if pad == 0:
-        return table
-    return jnp.concatenate([table, jnp.zeros((pad, table.shape[1]),
-                                             table.dtype)])
-
-
-def tri_scan(tri_body, init, n_tris: int, tri_unroll: int):
-    """In-order scan of tri_body over [0, n_tris) with the fastest loop shape:
-    full Mosaic unroll for small scenes, manual PARTIAL_UNROLL windows for big
-    ones (n_tris must then be a PARTIAL_UNROLL multiple — see pad_table)."""
-    if n_tris <= TRI_UNROLL_CAP:
-        return jax.lax.fori_loop(0, n_tris, tri_body, init, unroll=tri_unroll)
-    if n_tris % PARTIAL_UNROLL:
-        raise ValueError(f"{n_tris} tris not padded to {PARTIAL_UNROLL}")
-
-    def outer(i, tc):
-        base = i * PARTIAL_UNROLL
-        for u in range(PARTIAL_UNROLL):
-            tc = tri_body(base + u, tc)
-        return tc
-
-    return jax.lax.fori_loop(0, n_tris // PARTIAL_UNROLL, outer, init)
-
-
-def resolve_scan_chunks(n_tris: int, requested: int = 0,
-                        interleave: int = 0) -> int:
-    """0 = auto: independent scan chunks for the small-scene unrolled scan.
-
-    The best-hit scan's order-test + select chain is serial in triangle index —
-    a ~3-op dependency chain per triangle that sample interleaving only hides
-    up to the register budget. Splitting the scan into K independent chunks
-    (each with its own fresh best-hit state, merged pairwise afterwards) cuts
-    the chain depth K× for ~10 extra merge ops per chunk, WITHOUT duplicating
-    ray/shading state the way wider interleave does. Applies only to the
-    fully-unrolled small-scene path (big scenes are latency-bound elsewhere).
-
-    Parity scan: bitwise-identical to the in-order scan (float '<' is a total
-    order on the finite t values, and every merge prefers the earlier chunk on
-    ties, so the global first-min is preserved exactly). fast/tp scans: the
-    merge compares cross-products of different pairs than the in-order scan
-    would, so decisions can shift at ulp comparison boundaries — the same
-    allclose contract those scans already carry.
-
-    Measured (v5e, Cornell 4-bounce megakernel, tp, same session): at
-    interleave 16, chunks 1/2/4 = 1054/1072/1043 Mrays/s (+1.6% at 2); at
-    interleave 8, chunks 2 LOSES ~3.5% (the streams already cover the chain
-    latency and the merge ops + extra live state only cost) — so auto enables
-    chunking only alongside 16-way interleave."""
-    if requested:
-        return requested
-    return 2 if (n_tris >= 8 and interleave >= 16) else 1
-
-
-def chunk_bounds(n_tris: int, chunks: int) -> list:
-    """Contiguous [lo, hi) triangle ranges for the chunked scan."""
-    bounds = [round(i * n_tris / chunks) for i in range(chunks + 1)]
-    return list(zip(bounds[:-1], bounds[1:]))
-
-
-def merge_frac_tc(a, b):
-    """Merge two fraction-tracked best hits ((num, den, ...) — fast/tp scans);
-    earlier chunk wins ties (strict '<'), matching the in-order scan's
-    first-min rule. Both dens are > 0 (backface cull / init 1)."""
-    selB = b[0] * a[1] < a[0] * b[1]
-
-    def pick(x, y):
-        if isinstance(x, tuple):
-            return _where3(selB, y, x)
-        return jnp.where(selB, y, x)
-
-    return tuple(pick(x, y) for x, y in zip(a, b))
-
-
-def merge_parity_tc(a, b):
-    """Merge two parity-scan best hits ((best_t, ...)); earlier chunk wins
-    ties, so chunked == in-order bitwise (total order on finite floats)."""
-    selB = b[0] < a[0]
-
-    def pick(x, y):
-        if isinstance(x, tuple):
-            return _where3(selB, y, x)
-        return jnp.where(selB, y, x)
-
-    return tuple(pick(x, y) for x, y in zip(a, b))
-
-
-def resolve_interleave(n_samples: int, requested: int = 0,
-                       bounces: int = 0) -> int:
-    """0 = auto: widest of 16/8/4/2/1 that divides n_samples (16 only at
-    bounce depth ≤ 8).
-
-    Interleaving k independent samples through one bounce loop gives the VPU k
-    independent instruction streams — it hides the cross/dot/rsqrt dependency
-    chains the single-sample kernel stalls on. Measured (v5e, 512² Cornell,
-    64 spp, full tri unroll): 1→4→8 way = 723→780→803 Mrays/s at 4 bounces,
-    456→562→574 at 16 (parity scan, round 1); 8→16 way adds +0.2-1.8% on
-    every scan/bounce combination measured (round 3 — the tp scan's slimmer
-    tracked state leaves register headroom that wider interleave uses).
-    Output is bitwise-invariant in k (same per-sample math, same accumulation
-    order).
-
-    Auto caps at 8 past 8 bounces: kernel code size ≈ streams × bounce-loop
-    body, and Mosaic compile time grows superlinearly with it (measured ~9 min
-    cold for the 16-bounce il=16 kernel vs ~2-3 min at il=8) — for +1.8% on a
-    configuration where the wavefront kernel wins anyway."""
-    if requested:
-        return requested
-    widths = (16, 8, 4, 2) if 0 < bounces <= 8 else (8, 4, 2)
-    for k in widths:
-        if n_samples % k == 0:
-            return k
-    return 1
-
 
 def pack_scene(scene: Scene) -> jnp.ndarray:
-    """Flatten the scene pytree into the kernel's (T, 24) SMEM table."""
+    """Flatten the scene pytree into the kernel's (T, 24) table."""
     g, m = scene.geometry, scene.materials
     p1 = np.asarray(g.p1, np.float32)
     e1 = np.asarray(g.p2, np.float32) - p1
@@ -271,14 +119,14 @@ def scene_emissive_const(scene: Scene) -> tuple[float, float, float]:
 #   unum = e2·m − d·C1    C1 = cross(e2, p1)    scan's backface cull)
 #   vnum = d·C2 − e1·m    C2 = cross(e1, p1)
 # with ONE per-ray-per-bounce helper m = cross(o, d). This drops the two
-# per-triangle cross products (41 → 33 vector ops), and the tracked best-hit
-# state shrinks to 6 channels (t num/den, raw N ×3, material-CLASS code):
-# albedo/emissive/roughness/mtype live in a deduplicated class table baked
-# into the kernel as static constants and decoded once per bounce; the
-# shading normal is normalize(N), also computed once per bounce at decode.
-# Like the fast scan, hit decisions can differ from parity only at ulp
-# comparison boundaries (the four outputs are algebraically equal but round
-# differently); images are allclose. Requires tp_scan_supported(scene).
+# per-triangle cross products, and the tracked best-hit state shrinks to 6
+# channels (t num/den, raw N ×3, material-CLASS code): albedo/emissive/
+# roughness/mtype live in a deduplicated class table baked into the kernel as
+# static constants and decoded once per bounce; the shading normal is
+# normalize(N), also computed once per bounce at decode. Like the fast scan,
+# hit decisions can differ from parity only at ulp comparison boundaries (the
+# four outputs are algebraically equal but round differently); images are
+# allclose. Requires tp_scan_supported(scene).
 
 TP_CLASS_CAP = 16  # decode is an unrolled select chain — keep it short
 
@@ -294,9 +142,7 @@ TP_ORIGIN_FACTOR = 64.0
 
 # tp table layout (T, 24) f32 — columns:
 #  0:3 N | 3:6 e1 | 6:9 e2 | 9:12 C1 | 12:15 C2 | 15 k |
-#  16 code = material class index + 1 (0 = "no hit") |
-#  17:24 pad, UNLESS the tp0 peel is on: augment_table_tp0 fills them with
-#  17:20 U | 20:23 V | 23 t0 (the collapsed bounce-0 scan constants)
+#  16 code = material class index + 1 (0 = "no hit") | 17:24 pad
 
 
 def material_classes(scene: Scene):
@@ -367,82 +213,15 @@ def pack_scene_tp(scene: Scene):
     return jnp.asarray(tbl), classes
 
 
-def augment_table_tp0(table: jnp.ndarray, eye) -> jnp.ndarray:
-    """Fill a pack_scene_tp table's pad columns with bounce-0 constants.
-
-    Every path's FIRST segment starts at the shared camera origin (o == eye,
-    GenerateColors.cl:267), so the tp forms collapse to single dots with
-    per-triangle host-precomputable vectors: with m = cross(eye, d) and the
-    triple-product identity a·(b×c) = c·(a×b),
-        unum = e2·m − d·C1 = d·(e2×eye − C1) = d·U
-        vnum = d·C2 − e1·m = d·(C2 − e1×eye) = d·V
-        tnum = k − eye·N   = t0               (a per-triangle scalar)
-    — 9 dot-ops/tri instead of 21 (see tri_body_tp0). Columns 17:20 = U,
-    20:23 = V, 23 = t0. Zero (pad) rows stay inert: t0 = 0 fails the tnum > 0
-    test. Algebraically equal to the generic tp forms; rounds differently
-    (the scan's existing ulp/allclose contract)."""
-    e1 = table[:, 3:6]
-    e2 = table[:, 6:9]
-    eye = jnp.asarray(eye, jnp.float32)
-    u = jnp.cross(e2, jnp.broadcast_to(eye, e2.shape)) - table[:, 9:12]
-    v = table[:, 12:15] - jnp.cross(e1, jnp.broadcast_to(eye, e1.shape))
-    t0 = table[:, 15] - table[:, 0:3] @ eye
-    return jnp.concatenate([table[:, :17], u, v, t0[:, None]], axis=1)
+def flat_table(table: jnp.ndarray) -> jnp.ndarray:
+    """(T, C) table → 1-D, zero-padded to a power-of-two length (Triton's
+    block sizes). Only rows < T are ever read, so the padding is inert."""
+    flat = table.reshape(-1)
+    n = int(flat.shape[0])
+    return jnp.pad(flat, (0, pl.next_power_of_2(max(n, 1)) - n))
 
 
-def decode_tp_tc(tc, classes, vzero, vone):
-    """Decode the tp scan's tracked channels to the parity best-hit tuple.
-
-    (t_num, t_den, N×3, class code) → (best_t, normal, albedo, emissive,
-    rough, mtype). Runs once per bounce: one divide, one 1/sqrt normalize of
-    the winner's raw N, and an unrolled select chain over the ≤TP_CLASS_CAP
-    material classes (wheres emitted only for a class's nonzero/non-default
-    fields). No-hit lanes decode to best_t == T_MAX exactly."""
-    bnum, bden, bN, bcode = tc
-    best_t = bnum / bden
-    inv = 1.0 / jnp.sqrt(jnp.maximum(_dot3(bN, bN), 1e-40))
-    bn = _scale3(bN, inv)
-    zeros = vzero
-    balb = (zeros, zeros, zeros)
-    bemi = (zeros, zeros, zeros)
-    brough = zeros
-    bmty = vone  # diffuse default; no-hit lanes are inactive anyway
-    for i, (alb, emi, rough, mty) in enumerate(classes):
-        sel = jnp.abs(bcode - (i + 1.0)) < 0.5
-        balb = _where3(sel, (zeros + alb[0], zeros + alb[1],
-                             zeros + alb[2]), balb)
-        if any(c != 0.0 for c in emi):
-            bemi = _where3(sel, (zeros + emi[0], zeros + emi[1],
-                                 zeros + emi[2]), bemi)
-        if rough != 0.0:
-            brough = jnp.where(sel, rough, brough)
-        if mty != 1.0:
-            bmty = jnp.where(sel, mty, bmty)
-    return best_t, bn, balb, bemi, brough, bmty
-
-
-def decode_fast_tc(tc, emi_const):
-    """Decode the fast scan's tracked channels to the parity best-hit tuple.
-
-    (t_num, t_den, normal, albedo, code) → (best_t, normal, albedo, emissive,
-    rough, mtype). Runs once per bounce — it amortizes the per-triangle divide
-    and attribute selects the fast scan removed. No-hit lanes decode to
-    best_t == T_MAX exactly (t_num init T_MAX / t_den init 1), so the standard
-    `best_t < T_MAX` hit test is unchanged."""
-    bnum, bden, bn, balb, bcode = tc
-    best_t = bnum / bden            # the one divide
-    emit = bcode >= 15.5
-    code2 = bcode - jnp.where(emit, 16.0, 0.0)
-    bspec = code2 >= 7.5
-    brough = jnp.maximum(code2 - jnp.where(bspec, 8.0, 4.0), 0.0)
-    bmty = jnp.where(bspec, 2.0, 1.0)
-    emit_f = jnp.where(emit, 1.0, 0.0)
-    bemi = (emit_f * emi_const[0], emit_f * emi_const[1],
-            emit_f * emi_const[2])
-    return best_t, bn, balb, bemi, brough, bmty
-
-
-# ---- component-wise 3-vector helpers over (8, 128) tiles ----------------------
+# ---- component-wise 3-vector helpers over lane vectors -----------------------
 
 def _dot3(a, b):
     return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
@@ -495,20 +274,208 @@ def _camera_constants(cfg: RenderConfig):
             tuple(np.float32(v) for v in cfg.camera.eye))
 
 
-def _make_kernel(cfg: RenderConfig, n_tris: int, n_samples: int,
-                 tri_unroll: int = 0, interleave: int = 0,
-                 flat_table: bool = True, scan: str = "parity",
-                 emi_const: tuple = (0.0, 0.0, 0.0), classes: tuple = (),
-                 scan_chunks: int = 0, tp0: bool = False,
-                 rays_input: bool = False):
-    """Build the kernel body with all static config baked in.
+def camera_path(cfg: RenderConfig, pid, sample_idx):
+    """Seed + camera ray (generateRay, GenerateColors.cl:263-288) for one
+    progressive frame; returns the path state (o, d, mask, rad, active, rng).
+    `active` is an f32 0/1 lane mask."""
+    view, hol, upd, angle, eye = _camera_constants(cfg)
+    W, H = cfg.width, cfg.height
+    aspect = np.float32(W / H)
+    state = krng.seed_from(pid, sample_idx)
+    state, u1 = krng.next_float(state)
+    state, u2 = krng.next_float(state)
+    x = (pid % W).astype(jnp.float32) + u1 - 0.5
+    y = (pid // W).astype(jnp.float32) + u2 - 0.5
+    sx = (2.0 * ((x + 0.5) * (1.0 / W)) - 1.0) * angle * aspect
+    sy = -(1.0 - 2.0 * ((y + 0.5) * (1.0 / H))) * angle
+    d = _normalize3((sx * hol[0] - sy * upd[0] + view[0],
+                     sx * hol[1] - sy * upd[1] + view[1],
+                     sx * hol[2] - sy * upd[2] + view[2]))
+    zeros = jnp.zeros_like(sx)
+    ones = zeros + 1.0
+    o = (zeros + eye[0], zeros + eye[1], zeros + eye[2])
+    return (o, d, (ones, ones, ones), (zeros, zeros, zeros), ones, state)
 
-    flat_table: the scene table ref is 1-D (T*24,) in SMEM (fast scalar loads,
-    no row padding); False = 2-D (T, 24) in VMEM for scenes beyond SMEM.
+
+def shade(cfg: RenderConfig, path, hit):
+    """The post-scan part of one bounce (GenerateColors.cl:227-258).
+
+    hit = (best_t, normal, albedo, emissive, rough, mtype) of the nearest hit.
+    Returns (path', terms) with terms = (active, miss, q, qf, alive): the
+    lanes that hit an active path, the active lanes that missed, the BRDF
+    weight per unit albedo q (f = albedo·q — diffuse 1/π, GGX D/(4 cosi coso)·2)
+    and q·cosθ/pdf — what the adjoint kernel needs beyond the forward."""
+    o, d, mask, rad, active_f, state = path
+    best_t, bn, balb, bemi, brough, bmty = hit
+    bg = tuple(np.float32(c) for c in cfg.bg_color)
+    eboost = np.float32(cfg.emissive_boost)
+    active = active_f > 0.5
+    hit_any = best_t < T_MAX
+
+    # ---- miss: masked bg once, lane dies (GenerateColors.cl:233-237)
+    miss = active & ~hit_any
+    rad = (rad[0] + jnp.where(miss, mask[0] * bg[0], 0.0),
+           rad[1] + jnp.where(miss, mask[1] * bg[1], 0.0),
+           rad[2] + jnp.where(miss, mask[2] * bg[2], 0.0))
+    active = active & hit_any
+
+    # ---- emission ×3 (GenerateColors.cl:241)
+    rad = (rad[0] + jnp.where(active, mask[0] * bemi[0] * eboost, 0.0),
+           rad[1] + jnp.where(active, mask[1] * bemi[1] * eboost, 0.0),
+           rad[2] + jnp.where(active, mask[2] * bemi[2] * eboost, 0.0))
+
+    # ---- flip normal against ray (GenerateColors.cl:243)
+    n = _where3(_dot3(bn, d) < 0.0, bn, _neg3(bn))
+    wo = _neg3(d)
+
+    # ---- draws: phi then xi (GenerateColors.cl:163-164 / 182-183)
+    state, ud1 = krng.next_float(state)
+    state, ud2 = krng.next_float(state)
+
+    # tangent frame (GenerateColors.cl:167-169)
+    zeros = jnp.zeros_like(ud1)
+    ones = zeros + 1.0
+    use_y = jnp.abs(n[0]) > 0.001
+    axis = _where3(use_y, (zeros, ones, zeros), (ones, zeros, zeros))
+    tt = _normalize3(_cross3(axis, n))
+    ss = _cross3(n, tt)
+
+    phi = TWO_PI * ud1
+    cphi = jnp.cos(phi)
+    sphi = jnp.sin(phi)
+
+    # diffuse lobe (GenerateColors.cl:161-172, 197-204): f = albedo/π
+    sin_d = jnp.sqrt(ud2)
+    cos_d = jnp.sqrt(1.0 - ud2)
+    wi_d = _normalize3(_add3(_add3(
+        _scale3(ss, cphi * sin_d), _scale3(tt, sphi * sin_d)),
+        _scale3(n, cos_d)))
+    pdf_d = _dot3(wi_d, n) * INV_PI
+
+    # specular GGX lobe (GenerateColors.cl:174-192, 205-218)
+    r2 = brough * brough
+    cos_h = jnp.sqrt(
+        (1.0 - ud2) / jnp.maximum(ud2 * (r2 - 1.0) + 1.0, 1e-12))
+    sin_h = jnp.sqrt(jnp.maximum(0.0, 1.0 - cos_h * cos_h))
+    wh = _normalize3(_add3(_add3(
+        _scale3(ss, cphi * sin_h), _scale3(tt, sphi * sin_h)),
+        _scale3(n, cos_h)))
+    wi_s = _add3(_neg3(wo), _scale3(wh, 2.0 * _dot3(wo, wh)))
+    same_hemi = _dot3(wi_s, n) * _dot3(wo, n) >= 0.0
+    denom_ndf = cos_h * cos_h * (r2 - 1.0) + 1.0
+    # max clamp: r=0 (diffuse lanes) makes this 0/0 otherwise.
+    d_ndf = r2 * INV_PI / jnp.maximum(denom_ndf * denom_ndf, 1e-12)
+    pdf_s = d_ndf * cos_h / _safe_denom(4.0 * _dot3(wo, wh))
+    fs_scalar = d_ndf / _safe_denom(
+        4.0 * _dot3(wi_s, n) * _dot3(wo, n)) * 2.0  # ×2 quirk :217
+    pdf_s = jnp.where(same_hemi, pdf_s, 0.0)
+    q_s = jnp.where(same_hemi, fs_scalar, 0.0)
+
+    bspec = bmty >= 1.5
+    wi = _where3(bspec, wi_s, wi_d)
+    pdf = jnp.where(bspec, pdf_s, pdf_d)
+    q = jnp.where(bspec, q_s, INV_PI)
+
+    # pdf <= 0 terminates (GenerateColors.cl:251)
+    alive = active & (pdf > 0.0)
+    safe_pdf = jnp.where(pdf > 0.0, pdf, 1.0)
+    factor = _dot3(wi, n) / safe_pdf
+    f = _scale3(balb, q)
+    mask_out = (jnp.where(alive, mask[0] * f[0] * factor, mask[0]),
+                jnp.where(alive, mask[1] * f[1] * factor, mask[1]),
+                jnp.where(alive, mask[2] * f[2] * factor, mask[2]))
+
+    # re-spawn offset 0.01 along wi (GenerateColors.cl:257)
+    hitp = _add3(o, _scale3(d, best_t))
+    o = _add3(hitp, _scale3(wi, np.float32(cfg.ray_offset)))
+    d = _where3(alive, wi, d)
+    path = (o, d, mask_out, rad, jnp.where(alive, 1.0, 0.0), state)
+    return path, (active, miss, q, q * factor, alive)
+
+
+def tri_tp(tl, j, o, d, m, tc):
+    """One triangle of the triple-product scan (tp table layout): the fast
+    scan's division-free order/validity tests on tp-computed numerators.
+    tc = (t_num, t_den, raw N, class code); m = cross(o, d)."""
+    nv = (tl(j, 0), tl(j, 1), tl(j, 2))
+    e1 = (tl(j, 3), tl(j, 4), tl(j, 5))
+    e2 = (tl(j, 6), tl(j, 7), tl(j, 8))
+    c1 = (tl(j, 9), tl(j, 10), tl(j, 11))
+    c2 = (tl(j, 12), tl(j, 13), tl(j, 14))
+    kk = tl(j, 15)
+    code = tl(j, 16)
+    bnum, bden, bN, bcode = tc
+    det = _dot3(d, nv)
+    tnum = kk - _dot3(o, nv)
+    unum = _dot3(e2, m) - _dot3(d, c1)
+    vnum = _dot3(d, c2) - _dot3(e1, m)
+    inside = jnp.minimum(jnp.minimum(unum, vnum), det - (unum + vnum)) >= 0.0
+    sel = ((det >= 1e-8)  # backface cull (GenerateColors.cl:100)
+           & inside & (tnum > 0.0) & (tnum * bden < bnum * det))
+    return (jnp.where(sel, tnum, bnum), jnp.where(sel, det, bden),
+            _where3(sel, nv, bN), jnp.where(sel, code, bcode))
+
+
+def tp_fresh(zeros):
+    """Empty tp best hit: t = T_MAX/1 (decodes to exactly T_MAX), code 0."""
+    return (zeros + T_MAX, zeros + 1.0, (zeros, zeros, zeros), zeros)
+
+
+def decode_tp_tc(tc, classes):
+    """Decode the tp scan's tracked channels to the parity best-hit tuple.
+
+    (t_num, t_den, N×3, class code) → (best_t, normal, albedo, emissive,
+    rough, mtype). Runs once per bounce: one divide, one 1/sqrt normalize of
+    the winner's raw N, and an unrolled select chain over the ≤TP_CLASS_CAP
+    material classes. `classes` holds (albedo, emissive, rough, mtype) per
+    class as Python floats or as scalars loaded from a table. No-hit lanes
+    decode to best_t == T_MAX exactly."""
+    bnum, bden, bN, bcode = tc
+    best_t = bnum / bden
+    inv = 1.0 / jnp.sqrt(jnp.maximum(_dot3(bN, bN), 1e-40))
+    bn = _scale3(bN, inv)
+    zeros = jnp.zeros_like(bnum)
+    balb = bemi = (zeros, zeros, zeros)
+    brough = zeros
+    bmty = zeros + 1.0  # diffuse default; no-hit lanes are inactive anyway
+    for i, (alb, emi, rough, mty) in enumerate(classes):
+        sel = jnp.abs(bcode - (i + 1.0)) < 0.5
+        balb = _where3(sel, alb, balb)
+        bemi = _where3(sel, emi, bemi)
+        brough = jnp.where(sel, rough, brough)
+        bmty = jnp.where(sel, mty, bmty)
+    return best_t, bn, balb, bemi, brough, bmty
+
+
+def decode_fast_tc(tc, emi_const):
+    """Decode the fast scan's tracked channels to the parity best-hit tuple.
+
+    (t_num, t_den, normal, albedo, code) → (best_t, normal, albedo, emissive,
+    rough, mtype). Runs once per bounce — it amortizes the per-triangle divide
+    and attribute selects the fast scan removed. No-hit lanes decode to
+    best_t == T_MAX exactly (t_num init T_MAX / t_den init 1), so the standard
+    `best_t < T_MAX` hit test is unchanged."""
+    bnum, bden, bn, balb, bcode = tc
+    best_t = bnum / bden            # the one divide
+    emit = bcode >= 15.5
+    code2 = bcode - jnp.where(emit, 16.0, 0.0)
+    bspec = code2 >= 7.5
+    brough = jnp.maximum(code2 - jnp.where(bspec, 8.0, 4.0), 0.0)
+    bmty = jnp.where(bspec, 2.0, 1.0)
+    emit_f = jnp.where(emit, 1.0, 0.0)
+    bemi = (emit_f * emi_const[0], emit_f * emi_const[1],
+            emit_f * emi_const[2])
+    return best_t, bn, balb, bemi, brough, bmty
+
+
+def _make_kernel(cfg: RenderConfig, n_tris: int, n_samples: int,
+                 scan: str = "parity", emi_const: tuple = (0.0, 0.0, 0.0),
+                 classes: tuple = (), rays_input: bool = False):
+    """Build the kernel body with all static config baked in.
 
     scan: "parity" reproduces the reference's intersectTriangle arithmetic
     exactly (per-triangle inv_det divide, u/v in [0,1], 12 tracked best-hit
-    channels — bit-comparable with integrators/parity.py). "fast" is the
+    channels — comparable with integrators/parity.py). "fast" is the
     division-free form: candidate t stays a (num, den) fraction compared by
     cross-multiplication (den > 0 after the backface cull), u/v tests run on
     the undivided numerators, and the best hit tracks 9 channels
@@ -516,652 +483,273 @@ def _make_kernel(cfg: RenderConfig, n_tris: int, n_samples: int,
     instead of 12, decoded once per bounce; the shared emitter RGB arrives as
     the static `emi_const` (scene_emissive_const). Hit DECISIONS can differ
     from parity only where the reference's u = unum*(1/det) rounds across a
-    comparison boundary (≤1 ulp — measured 8 of 56M segments on the Cornell
-    workload); images are allclose. Requires fast_scan_supported(scene).
+    comparison boundary; images are allclose. Requires
+    fast_scan_supported(scene).
 
     "tp" is the triple-product scan (see the block comment above
-    material_classes): precomputed per-triangle constants drop the two in-scan
-    cross products and the tracked state shrinks to 6 channels; material
-    attributes arrive via the static `classes` tuple (pack_scene_tp's second
-    return). The table MUST be pack_scene_tp's. Requires
-    tp_scan_supported(scene); same allclose-to-parity contract as "fast"."""
+    material_classes): precomputed per-triangle constants drop the two
+    in-scan cross products and the tracked state shrinks to 6 channels;
+    material attributes arrive via the static `classes` tuple
+    (pack_scene_tp's second return). The table MUST be pack_scene_tp's.
+    Requires tp_scan_supported(scene); same allclose-to-parity contract as
+    "fast".
+
+    rays_input: origins and directions arrive as (4, BLOCK) planes (x, y, z,
+    pad) instead of the camera prologue — the radiance-probe entry
+    (trace_rays_pallas_stats)."""
     if scan not in ("parity", "fast", "tp"):
         raise ValueError(f"scan must be 'parity', 'fast' or 'tp', got {scan!r}")
-    fast = scan == "fast"
-    tp = scan == "tp"
-    if tp and not classes:
+    if scan == "tp" and not classes:
         raise ValueError("scan='tp' needs the classes tuple from pack_scene_tp")
-    # Bounce-0 specialization needs the tp table's augment_table_tp0 columns
-    # and the small-scene peeled loop; the big-scene while_loop keeps one body.
-    # Past 8 bounces the peel is disabled like the 16-way interleave: it adds
-    # one extra unrolled scan per stream to the kernel (Mosaic compile time
-    # grows superlinearly in code size) for +1.9% on a depth where the
-    # wavefront kernel wins anyway (vs +4% median at the 4-bounce headline).
-    tp0 = (tp0 and tp and n_tris <= TRI_UNROLL_CAP
-           and 1 <= cfg.bounces <= 8
-           and not rays_input)  # arbitrary rays don't share the camera origin
-    tri_unroll = resolve_tri_unroll(n_tris, tri_unroll)
-    auto_il = interleave == 0
-    interleave = resolve_interleave(n_samples, interleave, cfg.bounces)
-    if auto_il and _interpret():
-        # Off-TPU the kernel runs interpreted for correctness only, and
-        # trace/lower time grows with streams × unrolled scan size — bound the
-        # AUTO pick (explicit requests are honored) to keep CPU tests fast.
-        # Megakernel output is bitwise-invariant in interleave, so this does
-        # not change what the tests check.
-        interleave = min(interleave, 4)
-    # Chunked scan applies only to the fully-unrolled small-scene path (see
-    # resolve_scan_chunks); big rolled scans keep the in-order loop.
-    scan_chunks = resolve_scan_chunks(n_tris, scan_chunks, interleave)
-    if n_tris > TRI_UNROLL_CAP or scan_chunks > n_tris:
-        scan_chunks = 1
-    W, H = cfg.width, cfg.height
-    bounces = cfg.bounces
-    view, hol, upd, angle, eye = _camera_constants(cfg)
-    aspect = np.float32(W / H)
-    bg = tuple(np.float32(c) for c in cfg.bg_color)
-    eboost = np.float32(cfg.emissive_boost)
-    roffset = np.float32(cfg.ray_offset)
 
-    def kernel(table_ref, start_ref, base_ref, *rest):
-        # rays_input: rest = (o_ref, d_ref, out_ref, seg_ref) — origins and
-        # directions arrive as (1, 3, SUB, LANE) VMEM channel planes instead
-        # of the baked camera prologue (kernel-speed radiance probes for the
-        # boundary estimators, VERDICT r4 item 2). RNG still keys on the
-        # absolute row id (pid), so two probe batches with equal row counts
-        # share their uniform streams row-for-row (the CRN pairing contract).
+    def kernel(table_ref, scal_ref, *rest):
         if rays_input:
-            o_ref, d_ref, out_ref, seg_ref = rest
+            o_ref, d_ref, out_ref = rest
         else:
-            out_ref, seg_ref = rest
-        if flat_table:
-            def tl(j, c):
-                return table_ref[j * TABLE_COLS + c]
-        else:
-            def tl(j, c):
-                return table_ref[j, c]
+            (out_ref,) = rest
 
-        b = pl.program_id(0)
-        sub_ids = jax.lax.broadcasted_iota(jnp.int32, (SUB, LANE), 0)
-        lane_ids = jax.lax.broadcasted_iota(jnp.int32, (SUB, LANE), 1)
-        # base_ref: ABSOLUTE pixel id of this invocation's first block — nonzero
-        # when the image is shard_map-split across devices. Keying the RNG on the
-        # absolute id is what makes sharded output bitwise layout-invariant.
-        pid = base_ref[0] + b * BLOCK + sub_ids * LANE + lane_ids
-        px = (pid % W).astype(jnp.float32)
-        py = (pid // W).astype(jnp.float32)
+        def tl(j, c):
+            return table_ref[j * TABLE_COLS + c]
 
-        # Mosaic layout note: loop-carried tiles must NOT be splat constants
-        # (jnp.zeros / broadcast_to get a "replicated" layout, the loop body
-        # produces a concrete one, and layout inference rejects the relayout).
-        # vzero is iota-derived — concretely laid out — and seeds every carry.
-        vzero = pid.astype(jnp.float32) * 0.0  # varies in BOTH dims -> {0,0} layout
-        vone = vzero + 1.0
-
-        zeros = vzero
-        ones = vone
+        # scal_ref = (first sample, ABSOLUTE pixel/row id of this call's
+        # first lane) — nonzero when the image is shard_map-split across
+        # devices. Keying the RNG on the absolute id is what makes sharded
+        # output bitwise layout-invariant.
+        pid = lane_ids(scal_ref[1])
+        zeros = jnp.zeros((BLOCK,), jnp.float32)
 
         def start_path(sample_idx):
-            """Seed + camera ray (generateRay, GenerateColors.cl:263-288) for one
-            progressive frame; returns the path-state dict the bounce step carries.
-            Bool tiles must not cross scf loop boundaries (Mosaic has no layout
-            for carried vector<i1>) — active is carried as an f32 0/1 mask."""
-            state = krng.seed_from(pid, sample_idx)
-            if rays_input:
-                # Arbitrary rays: no camera, no jitter draws — the stream's
-                # first two draws are bounce 0's (phi, xi), matching the jnp
-                # twin ref_uniforms(row_ids, sample, 2*bounces) directly.
-                o = (o_ref[0, 0], o_ref[0, 1], o_ref[0, 2])
-                d = (d_ref[0, 0], d_ref[0, 1], d_ref[0, 2])
-                return (o, d, (ones, ones, ones), (zeros, zeros, zeros),
-                        vone, state)
-            state, u1 = krng.next_float(state)
-            state, u2 = krng.next_float(state)
-            x = px + u1 - 0.5
-            y = py + u2 - 0.5
-            sx = (2.0 * ((x + 0.5) * (1.0 / W)) - 1.0) * angle * aspect
-            sy = -(1.0 - 2.0 * ((y + 0.5) * (1.0 / H))) * angle
-            d = _normalize3((sx * hol[0] - sy * upd[0] + view[0],
-                             sx * hol[1] - sy * upd[1] + view[1],
-                             sx * hol[2] - sy * upd[2] + view[2]))
-            o = (vzero + eye[0],
-                 vzero + eye[1],
-                 vzero + eye[2])
-            return (o, d, (ones, ones, ones), (zeros, zeros, zeros), vone, state)
+            if not rays_input:
+                return camera_path(cfg, pid, sample_idx)
+            # Arbitrary rays: no camera, no jitter draws — the stream's first
+            # two draws are bounce 0's (phi, xi), matching the jnp twin
+            # ref_uniforms(row_ids, sample, 2*bounces). Two calls with equal
+            # row counts share their streams row for row (the CRN pairing).
+            ones = zeros + 1.0
+            o = (o_ref[0, :], o_ref[1, :], o_ref[2, :])
+            d = (d_ref[0, :], d_ref[1, :], d_ref[2, :])
+            return (o, d, (ones, ones, ones), (zeros, zeros, zeros), ones,
+                    krng.seed_from(pid, sample_idx))
 
-        def scan_multi(rays, primary=False):
-            """Nearest-hit scan (in-order, strict '<' ≡ reference intersectWorld,
-            GenerateColors.cl:137-154; winning attributes tracked incrementally —
-            no gather), MERGED across the group's streams: each triangle's 20
-            scalar loads happen ONCE and feed every stream's vector tests. For
-            big rolled-scan tables this amortizes the scalar-load latency that
-            otherwise dominates; per-stream results are bitwise-identical to
-            separate scans. rays: [(o, d)] per stream.
+        def scan_hits(o, d):
+            """Nearest-hit scan (in-order, strict '<' ≡ reference
+            intersectWorld, GenerateColors.cl:137-154; winning attributes
+            tracked incrementally — no gather), decoded to the parity
+            best-hit tuple."""
+            if scan == "tp":
+                m = _cross3(o, d)
+                tc = jax.lax.fori_loop(
+                    0, n_tris, lambda j, tc: tri_tp(tl, j, o, d, m, tc),
+                    tp_fresh(zeros))
+                return decode_tp_tc(tc, classes)
+            if scan == "fast":
+                tc = jax.lax.fori_loop(
+                    0, n_tris, lambda j, tc: _tri_fast(tl, j, o, d, tc),
+                    (zeros + T_MAX, zeros + 1.0, (zeros, zeros, zeros),
+                     (zeros, zeros, zeros), zeros))
+                return decode_fast_tc(tc, emi_const)
+            return jax.lax.fori_loop(
+                0, n_tris, lambda j, tc: _tri_parity(tl, j, o, d, tc),
+                (zeros + T_MAX, (zeros, zeros, zeros), (zeros, zeros, zeros),
+                 (zeros, zeros, zeros), zeros, zeros))
 
-            primary=True (tp0 only): every ray starts at the camera origin, so
-            the scan uses tri_body_tp0's collapsed single-dot forms against
-            augment_table_tp0's precomputed columns."""
-            use_tp0 = tp0 and primary
+        # One path per lane per sample. The bounce loop exits as soon as every
+        # lane of the block is dead: skipped bounces contribute nothing, so
+        # the image and the segment count equal the fixed-depth loop's.
+        def bounce_cond(carry):
+            b, path, _ = carry
+            return (b < cfg.bounces) & (jnp.max(path[4]) > 0.5)
 
-            # tp scan: one cross(o, d) per stream per bounce feeds every
-            # triangle's unum/vnum triple products (not needed for tp0 —
-            # the m-dependence is folded into the U/V columns).
-            ms = [_cross3(o, d) for (o, d) in rays] if tp and not use_tp0 \
-                else None
+        def bounce_body(carry):
+            b, path, sg = carry
+            sg = sg + path[4]  # segments traced this bounce = lanes alive
+            path, _ = shade(cfg, path, scan_hits(path[0], path[1]))
+            return b + 1, path, sg
 
-            def fresh():
-                if tp:
-                    return (vzero + T_MAX,          # t numerator
-                            vone,                   # t denominator (> 0)
-                            (zeros, zeros, zeros),  # raw N (unnormalized)
-                            zeros)                  # class code (0 = no hit)
-                if fast:
-                    return (vzero + T_MAX,          # t numerator
-                            vone,                   # t denominator (> 0)
-                            (zeros, zeros, zeros),  # normal
-                            (zeros, zeros, zeros),  # albedo
-                            zeros)      # rough + 4*mtype + 16*is_emitter code
-                return (vzero + T_MAX,          # best_t
-                        (zeros, zeros, zeros),  # normal
-                        (zeros, zeros, zeros),  # albedo
-                        (zeros, zeros, zeros),  # emissive
-                        zeros,                  # roughness
-                        zeros)  # mtype as f32 (Mosaic: no i1-vector truncs)
-
-            def tri_body_tp0(j, tcs):
-                """Primary-segment tp scan: o == eye folds each triangle's
-                forms into three dots with d plus a scalar tnum (see
-                augment_table_tp0) — 9 dot-ops/tri vs the generic body's 21."""
-                nv = (tl(j, 0), tl(j, 1), tl(j, 2))
-                uu = (tl(j, 17), tl(j, 18), tl(j, 19))
-                vv = (tl(j, 20), tl(j, 21), tl(j, 22))
-                t0 = tl(j, 23)
-                code = tl(j, 16)
-                out = []
-                for (o, d), tc in zip(rays, tcs):
-                    bnum, bden, bN, bcode = tc
-                    det = _dot3(d, nv)
-                    unum = _dot3(d, uu)
-                    vnum = _dot3(d, vv)
-                    inside = jnp.minimum(jnp.minimum(unum, vnum),
-                                         det - (unum + vnum)) >= 0.0
-                    sel = ((det >= 1e-8) & inside & (t0 > 0.0)
-                           & (t0 * bden < bnum * det))
-                    bnum = jnp.where(sel, vzero + t0, bnum)
-                    bden = jnp.where(sel, det, bden)
-                    bN = _where3(sel, (vzero + nv[0], vzero + nv[1],
-                                       vzero + nv[2]), bN)
-                    bcode = jnp.where(sel, code, bcode)
-                    out.append((bnum, bden, bN, bcode))
-                return tuple(out)
-
-            def tri_body_tp(j, tcs):
-                """Triple-product scan (see the material_classes block comment;
-                tp table layout). Ordering/validity tests are the fast scan's
-                division-free forms on the tp-computed numerators."""
-                nv = (tl(j, 0), tl(j, 1), tl(j, 2))
-                e1 = (tl(j, 3), tl(j, 4), tl(j, 5))
-                e2 = (tl(j, 6), tl(j, 7), tl(j, 8))
-                c1 = (tl(j, 9), tl(j, 10), tl(j, 11))
-                c2 = (tl(j, 12), tl(j, 13), tl(j, 14))
-                kk = tl(j, 15)
-                code = tl(j, 16)
-                out = []
-                for (o, d), m, tc in zip(rays, ms, tcs):
-                    bnum, bden, bN, bcode = tc
-                    det = _dot3(d, nv)
-                    tnum = kk - _dot3(o, nv)
-                    unum = _dot3(e2, m) - _dot3(d, c1)
-                    vnum = _dot3(d, c2) - _dot3(e1, m)
-                    inside = jnp.minimum(jnp.minimum(unum, vnum),
-                                         det - (unum + vnum)) >= 0.0
-                    sel = ((det >= 1e-8)  # backface cull (GenerateColors.cl:100)
-                           & inside & (tnum > 0.0)
-                           & (tnum * bden < bnum * det))
-                    bnum = jnp.where(sel, tnum, bnum)
-                    bden = jnp.where(sel, det, bden)
-                    bN = _where3(sel, (vzero + nv[0], vzero + nv[1],
-                                       vzero + nv[2]), bN)
-                    bcode = jnp.where(sel, code, bcode)
-                    out.append((bnum, bden, bN, bcode))
-                return tuple(out)
-
-            def tri_body_fast(j, tcs):
-                """Division-free Möller–Trumbore (see _make_kernel docstring).
-
-                Candidate t = t_num/det is never divided: ordering against the
-                best hit uses t_num*best_den < best_num*det (both dens > 0 by
-                the backface cull); u,v tests run as 0 <= u_num, 0 <= v_num,
-                u_num+v_num <= det (u <= 1 is implied by v >= 0 ∧ u+v <= 1 —
-                the reference's separate u > 1 test is redundant)."""
-                p1 = (tl(j, 0), tl(j, 1), tl(j, 2))
-                e1 = (tl(j, 3), tl(j, 4), tl(j, 5))
-                e2 = (tl(j, 6), tl(j, 7), tl(j, 8))
-                nrm = (tl(j, 9), tl(j, 10), tl(j, 11))
-                alb = (tl(j, 12), tl(j, 13), tl(j, 14))
-                code = tl(j, 23)
-                out = []
-                for (o, d), tc in zip(rays, tcs):
-                    bnum, bden, bn, balb, bcode = tc
-                    pvec = _cross3(d, e2)
-                    det = _dot3(e1, pvec)
-                    tvec = (o[0] - p1[0], o[1] - p1[1], o[2] - p1[2])
-                    unum = _dot3(tvec, pvec)
-                    qvec = _cross3(tvec, e1)
-                    vnum = _dot3(d, qvec)
-                    tnum = _dot3(e2, qvec)
-                    inside = jnp.minimum(jnp.minimum(unum, vnum),
-                                         det - (unum + vnum)) >= 0.0
-                    sel = ((det >= 1e-8)  # backface cull (GenerateColors.cl:100)
-                           & inside & (tnum > 0.0)
-                           & (tnum * bden < bnum * det))
-                    bnum = jnp.where(sel, tnum, bnum)
-                    bden = jnp.where(sel, det, bden)
-                    bn = _where3(sel, (vzero + nrm[0], vzero + nrm[1],
-                                       vzero + nrm[2]), bn)
-                    balb = _where3(sel, (vzero + alb[0], vzero + alb[1],
-                                         vzero + alb[2]), balb)
-                    bcode = jnp.where(sel, code, bcode)
-                    out.append((bnum, bden, bn, balb, bcode))
-                return tuple(out)
-
-            def tri_body(j, tcs):
-                p1 = (tl(j, 0), tl(j, 1), tl(j, 2))
-                e1 = (tl(j, 3), tl(j, 4), tl(j, 5))
-                e2 = (tl(j, 6), tl(j, 7), tl(j, 8))
-                nrm = (tl(j, 9), tl(j, 10), tl(j, 11))
-                alb = (tl(j, 12), tl(j, 13), tl(j, 14))
-                emi = (tl(j, 15), tl(j, 16), tl(j, 17))
-                rough = tl(j, 18)
-                mty = tl(j, 19)
-                out = []
-                for (o, d), tc in zip(rays, tcs):
-                    best_t, bn, balb, bemi, brough, bmty = tc
-                    pvec = _cross3(d, e2)
-                    det = _dot3(e1, pvec)
-                    front = det >= 1e-8  # backface cull (GenerateColors.cl:100)
-                    inv_det = 1.0 / jnp.where(front, det, 1.0)
-                    tvec = (o[0] - p1[0], o[1] - p1[1], o[2] - p1[2])
-                    u = _dot3(tvec, pvec) * inv_det
-                    qvec = _cross3(tvec, e1)
-                    v = _dot3(d, qvec) * inv_det
-                    t = _dot3(e2, qvec) * inv_det
-                    sel = (front & (u >= 0.0) & (u <= 1.0)
-                           & (v >= 0.0) & (u + v <= 1.0)
-                           & (t > 0.0) & (t < best_t))
-                    best_t = jnp.where(sel, t, best_t)
-                    bn = _where3(sel, (vzero + nrm[0], vzero + nrm[1],
-                                       vzero + nrm[2]), bn)
-                    balb = _where3(sel, (vzero + alb[0], vzero + alb[1],
-                                         vzero + alb[2]), balb)
-                    bemi = _where3(sel, (vzero + emi[0], vzero + emi[1],
-                                         vzero + emi[2]), bemi)
-                    brough = jnp.where(sel, rough, brough)
-                    bmty = jnp.where(sel, mty, bmty)
-                    out.append((best_t, bn, balb, bemi, brough, bmty))
-                return tuple(out)
-
-            if use_tp0:
-                body = tri_body_tp0
-            else:
-                body = tri_body_tp if tp else (
-                    tri_body_fast if fast else tri_body)
-            if scan_chunks <= 1:
-                return tri_scan(body, tuple(fresh() for _ in rays), n_tris,
-                                tri_unroll)
-            # K independent best-hit chains (chain-depth / K), merged pairwise
-            # in chunk order — see resolve_scan_chunks for the exactness
-            # contract per scan mode.
-            merge = merge_parity_tc if scan == "parity" else merge_frac_tc
-            parts = []
-            for lo, hi in chunk_bounds(n_tris, scan_chunks):
-                tcs = tuple(fresh() for _ in rays)
-                for j in range(lo, hi):
-                    tcs = body(j, tcs)
-                parts.append(tcs)
-            out = parts[0]
-            for p in parts[1:]:
-                out = tuple(merge(a, b) for a, b in zip(out, p))
-            return out
-
-        def shade_one(path, tc):
-            """Post-scan part of one bounce for one stream."""
-            o, d, mask, rad, active_f, state = path
-            active = active_f > 0.5
-            if tp:
-                best_t, bn, balb, bemi, brough, bmty = decode_tp_tc(
-                    tc, classes, vzero, vone)
-            elif fast:
-                best_t, bn, balb, bemi, brough, bmty = decode_fast_tc(
-                    tc, emi_const)
-            else:
-                best_t, bn, balb, bemi, brough, bmty = tc
-            hit = best_t < T_MAX
-
-            # ---- miss: masked bg once, lane dies (GenerateColors.cl:233-237)
-            miss = active & ~hit
-            rad = (rad[0] + jnp.where(miss, mask[0] * bg[0], 0.0),
-                   rad[1] + jnp.where(miss, mask[1] * bg[1], 0.0),
-                   rad[2] + jnp.where(miss, mask[2] * bg[2], 0.0))
-            active = active & hit
-
-            # ---- emission ×3 (GenerateColors.cl:241)
-            rad = (rad[0] + jnp.where(active, mask[0] * bemi[0] * eboost, 0.0),
-                   rad[1] + jnp.where(active, mask[1] * bemi[1] * eboost, 0.0),
-                   rad[2] + jnp.where(active, mask[2] * bemi[2] * eboost, 0.0))
-
-            # ---- flip normal against ray (GenerateColors.cl:243)
-            n = _where3(_dot3(bn, d) < 0.0, bn, _neg3(bn))
-            wo = _neg3(d)
-
-            # ---- draws: phi then xi (GenerateColors.cl:163-164 / 182-183)
-            state, ud1 = krng.next_float(state)
-            state, ud2 = krng.next_float(state)
-
-            # tangent frame (GenerateColors.cl:167-169)
-            use_y = jnp.abs(n[0]) > 0.001
-            axis = _where3(use_y,
-                           (zeros, ones, zeros), (ones, zeros, zeros))
-            tt = _normalize3(_cross3(axis, n))
-            ss = _cross3(n, tt)
-
-            phi = TWO_PI * ud1
-            cphi = jnp.cos(phi)
-            sphi = jnp.sin(phi)
-
-            # diffuse lobe (GenerateColors.cl:161-172, 197-204)
-            sin_d = jnp.sqrt(ud2)
-            cos_d = jnp.sqrt(1.0 - ud2)
-            wi_d = _normalize3(_add3(_add3(
-                _scale3(ss, cphi * sin_d), _scale3(tt, sphi * sin_d)),
-                _scale3(n, cos_d)))
-            pdf_d = _dot3(wi_d, n) * INV_PI
-            f_d = _scale3(balb, INV_PI)
-
-            # specular GGX lobe (GenerateColors.cl:174-192, 205-218)
-            r2 = brough * brough
-            cos_h = jnp.sqrt(
-                (1.0 - ud2) / jnp.maximum(ud2 * (r2 - 1.0) + 1.0, 1e-12))
-            sin_h = jnp.sqrt(jnp.maximum(0.0, 1.0 - cos_h * cos_h))
-            wh = _normalize3(_add3(_add3(
-                _scale3(ss, cphi * sin_h), _scale3(tt, sphi * sin_h)),
-                _scale3(n, cos_h)))
-            wi_s = _add3(_neg3(wo), _scale3(wh, 2.0 * _dot3(wo, wh)))
-            same_hemi = _dot3(wi_s, n) * _dot3(wo, n) >= 0.0
-            denom_ndf = cos_h * cos_h * (r2 - 1.0) + 1.0
-            # max clamp: r=0 (diffuse lanes) makes this 0/0 otherwise.
-            d_ndf = r2 * INV_PI / jnp.maximum(denom_ndf * denom_ndf, 1e-12)
-            pdf_s = d_ndf * cos_h / _safe_denom(4.0 * _dot3(wo, wh))
-            fs_scalar = d_ndf / _safe_denom(
-                4.0 * _dot3(wi_s, n) * _dot3(wo, n)) * 2.0  # ×2 quirk :217
-            f_s = _scale3(balb, fs_scalar)
-            pdf_s = jnp.where(same_hemi, pdf_s, 0.0)
-            f_s = _where3(same_hemi, f_s, (zeros, zeros, zeros))
-
-            bspec = bmty >= 1.5
-            wi = _where3(bspec, wi_s, wi_d)
-            pdf = jnp.where(bspec, pdf_s, pdf_d)
-            f = _where3(bspec, f_s, f_d)
-
-            # pdf <= 0 terminates (GenerateColors.cl:251)
-            alive = active & (pdf > 0.0)
-            safe_pdf = jnp.where(pdf > 0.0, pdf, 1.0)
-            factor = _dot3(wi, n) / safe_pdf
-            mask = (jnp.where(alive, mask[0] * f[0] * factor, mask[0]),
-                    jnp.where(alive, mask[1] * f[1] * factor, mask[1]),
-                    jnp.where(alive, mask[2] * f[2] * factor, mask[2]))
-
-            # re-spawn offset 0.01 along wi (GenerateColors.cl:257)
-            hitp = _add3(o, _scale3(d, best_t))
-            o = _add3(hitp, _scale3(wi, roffset))
-            d = _where3(alive, wi, d)
-            return (o, d, mask, rad, jnp.where(alive, vone, vzero), state)
-
-        # `interleave` independent samples step through the bounce loop together
-        # (see resolve_interleave) with a MERGED triangle scan. Accumulation
-        # order over samples is unchanged (group-major, in-group ascending) →
-        # bitwise-identical for any k.
-        def group_body(g, acc):
+        def sample_body(s, acc):
             r0, g0, b0, sg = acc
-            paths = tuple(start_path(start_ref[0] + g * interleave + i)
-                          for i in range(interleave))
+            _, path, sg = jax.lax.while_loop(
+                bounce_cond, bounce_body,
+                (jnp.int32(0), start_path(scal_ref[0] + s), sg))
+            rad = path[3]
+            # max(radiance, 0) — GenerateColors.cl:260
+            return (r0 + jnp.maximum(rad[0], 0.0),
+                    g0 + jnp.maximum(rad[1], 0.0),
+                    b0 + jnp.maximum(rad[2], 0.0), sg)
 
-            if n_tris > TRI_UNROLL_CAP:
-                # Big scenes: while_loop — exit as soon as every lane of every
-                # stream is dead, because each dead-bounce scan wastes a full
-                # O(n_tris) pass (measured +42% on a miss-heavy 5k-tri scene).
-                # Bitwise-identical: skipped iterations contribute nothing.
-                def bounce_cond(carry):
-                    b, paths, sg = carry
-                    alive = paths[0][4]
-                    for p in paths[1:]:
-                        alive = alive + p[4]
-                    return (b < bounces) & (jnp.sum(alive) > 0.0)
-
-                def bounce_body(carry):
-                    b, paths, sg = carry
-                    for p in paths:
-                        sg = sg + p[4]  # entrants this bounce
-                    tcs = scan_multi([(p[0], p[1]) for p in paths])
-                    return b + 1, tuple(shade_one(p, tc)
-                                        for p, tc in zip(paths, tcs)), sg
-
-                _, paths, sg = jax.lax.while_loop(
-                    bounce_cond, bounce_body, (jnp.int32(0), paths, sg))
-            else:
-                # Small scenes: fixed fori (a dead bounce costs only one cheap
-                # unrolled scan; the while_loop's per-bounce reduce costs ~4% of
-                # the Cornell headline — the wavefront kernel is the occupancy
-                # answer at high bounce caps), and per-stream scans (the fully
-                # unrolled straight-line scans already overlap/CSE in the
-                # scheduler; merging them measured slightly slower here).
-                def bounce_step(carry, primary=False):
-                    paths, sg = carry
-                    for p in paths:
-                        sg = sg + p[4]  # entrants this bounce
-                    tcs = [scan_multi([(p[0], p[1])], primary=primary)[0]
-                           for p in paths]
-                    return tuple(shade_one(p, tc)
-                                 for p, tc in zip(paths, tcs)), sg
-
-                def bounce_body(_, carry):
-                    return bounce_step(carry)
-
-                carry = (paths, sg)
-                if tp0:
-                    # Peel bounce 0: every path in a fresh group starts at the
-                    # camera origin → the cheaper tri_body_tp0 scan applies.
-                    carry = bounce_step(carry, primary=True)
-                    paths, sg = jax.lax.fori_loop(1, bounces, bounce_body,
-                                                  carry)
-                else:
-                    paths, sg = jax.lax.fori_loop(0, bounces, bounce_body,
-                                                  carry)
-            for p in paths:
-                rad = p[3]
-                # max(radiance, 0) — GenerateColors.cl:260
-                r0 = r0 + jnp.maximum(rad[0], 0.0)
-                g0 = g0 + jnp.maximum(rad[1], 0.0)
-                b0 = b0 + jnp.maximum(rad[2], 0.0)
-            return r0, g0, b0, sg
-
-        acc = jax.lax.fori_loop(0, n_samples // interleave, group_body,
+        acc = jax.lax.fori_loop(0, n_samples, sample_body,
                                 (zeros, zeros, zeros, zeros))
-        out_ref[0, 0] = acc[0]
-        out_ref[0, 1] = acc[1]
-        out_ref[0, 2] = acc[2]
-        seg_ref[0, 0] = acc[3]
+        for c in range(4):
+            out_ref[c, :] = acc[c]
 
     return kernel
 
 
-def _interpret() -> bool:
-    return jax.default_backend() != "tpu"
+def _tri_parity(tl, j, o, d, tc):
+    """One triangle of the reference-exact scan (intersectTriangle,
+    GenerateColors.cl:90-130): per-triangle inv_det divide, 12 channels."""
+    p1 = (tl(j, 0), tl(j, 1), tl(j, 2))
+    e1 = (tl(j, 3), tl(j, 4), tl(j, 5))
+    e2 = (tl(j, 6), tl(j, 7), tl(j, 8))
+    nrm = (tl(j, 9), tl(j, 10), tl(j, 11))
+    alb = (tl(j, 12), tl(j, 13), tl(j, 14))
+    emi = (tl(j, 15), tl(j, 16), tl(j, 17))
+    best_t, bn, balb, bemi, brough, bmty = tc
+    pvec = _cross3(d, e2)
+    det = _dot3(e1, pvec)
+    front = det >= 1e-8  # backface cull (GenerateColors.cl:100)
+    inv_det = 1.0 / jnp.where(front, det, 1.0)
+    tvec = (o[0] - p1[0], o[1] - p1[1], o[2] - p1[2])
+    u = _dot3(tvec, pvec) * inv_det
+    qvec = _cross3(tvec, e1)
+    v = _dot3(d, qvec) * inv_det
+    t = _dot3(e2, qvec) * inv_det
+    sel = (front & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
+           & (t > 0.0) & (t < best_t))
+    return (jnp.where(sel, t, best_t), _where3(sel, nrm, bn),
+            _where3(sel, alb, balb), _where3(sel, emi, bemi),
+            jnp.where(sel, tl(j, 18), brough), jnp.where(sel, tl(j, 19), bmty))
+
+
+def _tri_fast(tl, j, o, d, tc):
+    """One triangle of the division-free scan (see _make_kernel): candidate
+    t = t_num/det is never divided — ordering uses t_num*best_den <
+    best_num*det (both dens > 0 by the backface cull); u,v tests run as
+    0 <= u_num, 0 <= v_num, u_num+v_num <= det (u <= 1 is implied)."""
+    p1 = (tl(j, 0), tl(j, 1), tl(j, 2))
+    e1 = (tl(j, 3), tl(j, 4), tl(j, 5))
+    e2 = (tl(j, 6), tl(j, 7), tl(j, 8))
+    nrm = (tl(j, 9), tl(j, 10), tl(j, 11))
+    alb = (tl(j, 12), tl(j, 13), tl(j, 14))
+    bnum, bden, bn, balb, bcode = tc
+    pvec = _cross3(d, e2)
+    det = _dot3(e1, pvec)
+    tvec = (o[0] - p1[0], o[1] - p1[1], o[2] - p1[2])
+    unum = _dot3(tvec, pvec)
+    qvec = _cross3(tvec, e1)
+    vnum = _dot3(d, qvec)
+    tnum = _dot3(e2, qvec)
+    inside = jnp.minimum(jnp.minimum(unum, vnum), det - (unum + vnum)) >= 0.0
+    sel = ((det >= 1e-8)  # backface cull (GenerateColors.cl:100)
+           & inside & (tnum > 0.0) & (tnum * bden < bnum * det))
+    return (jnp.where(sel, tnum, bnum), jnp.where(sel, det, bden),
+            _where3(sel, nrm, bn), _where3(sel, alb, balb),
+            jnp.where(sel, tl(j, 23), bcode))
+
+
+def lane_planes(x: jnp.ndarray, n_pad: int) -> jnp.ndarray:
+    """(n, 3) → (4, n_pad) planes (x, y, z, 0): the kernels' per-lane input
+    layout — each row is read as one contiguous lane vector."""
+    out = jnp.zeros((4, n_pad), jnp.float32)
+    return out.at[:3, :x.shape[0]].set(jnp.asarray(x, jnp.float32).T)
+
+
+def call_kernel(kernel, whole, planes, n_pad: int, extra_out=None):
+    """pallas_call over n_pad / BLOCK programs. Inputs: `whole` arrays that
+    every program reads entirely (tables, the (2,) int32 scalars), then
+    (4, n_pad) lane planes; output (4, n_pad) — plus `extra_out` =
+    (block_shape, index_map, shape) for a second output."""
+    plane = pl.BlockSpec((4, BLOCK), lambda i: (0, i))
+    out_specs = plane
+    out_shape = jax.ShapeDtypeStruct((4, n_pad), jnp.float32)
+    if extra_out is not None:
+        bs, im, shape = extra_out
+        out_specs = (plane, pl.BlockSpec(bs, im))
+        out_shape = (out_shape, jax.ShapeDtypeStruct(shape, jnp.float32))
+    return pl.pallas_call(
+        kernel,
+        grid=(n_pad // BLOCK,),
+        in_specs=[pl.BlockSpec()] * len(whole) + [plane] * len(planes),
+        out_specs=out_specs,
+        out_shape=out_shape,
+        **pallas_params(NUM_WARPS),
+    )(*whole, *planes)
+
+
+def lane_ids(base):
+    """Inside a kernel: the ABSOLUTE pixel/row id of each lane of this
+    program's block, from the id of the call's first lane."""
+    return (base + pl.program_id(0) * BLOCK
+            + jax.lax.broadcasted_iota(jnp.int32, (BLOCK,), 0))
+
+
+def _scalars(start_sample, base):
+    return jnp.stack([jnp.asarray(start_sample, jnp.int32),
+                      jnp.asarray(base, jnp.int32)])
 
 
 @functools.partial(jax.jit,
-                   static_argnames=("cfg", "n_samples", "n_rays", "tri_unroll",
-                                    "scan", "emi_const", "interleave",
-                                    "classes", "scan_chunks", "tp0"))
+                   static_argnames=("cfg", "n_samples", "n_rays", "scan",
+                                    "emi_const", "classes"))
 def render_samples_pallas_stats(table: jnp.ndarray, cfg: RenderConfig,
                                 start_sample, n_samples: int,
                                 pid_base=0, n_rays: int | None = None,
-                                tri_unroll: int = 0, scan: str = "parity",
+                                scan: str = "parity",
                                 emi_const: tuple = (0.0, 0.0, 0.0),
-                                interleave: int = 0, classes: tuple = (),
-                                scan_chunks: int = 0, tp0: bool = True):
+                                classes: tuple = ()):
     """SUM of `n_samples` progressive 1-spp frames + traced-segment count.
 
-    Returns (img (n_rays, 3) f32, segments () f32). `table` is pack_scene(scene);
-    `start_sample` the first frame index; streams are the reference's, keyed
-    (ABSOLUTE pixel, frame). Padded lanes (pixel id ≥ n_pixels) are excluded from
-    the segment count.
+    Returns (img (n_rays, 3) f32, segments () f32). `table` is pack_scene(scene)
+    (pack_scene_tp for scan="tp"); `start_sample` the first frame index;
+    streams are the reference's, keyed (ABSOLUTE pixel, frame). Padded lanes
+    (pixel id ≥ n_pixels) are excluded from the segment count.
 
     `pid_base`/`n_rays` support shard_map tiling: a device rendering pixels
     [pid_base, pid_base + n_rays) passes its offset so RNG/camera stay keyed on
     absolute ids (bitwise layout invariance).
-
-    `scan_chunks` (0 = auto) splits the small-scene unrolled scan into K
-    independent best-hit chains merged afterwards — see resolve_scan_chunks
-    for the ILP rationale and per-scan exactness contract.
-
-    `tp0` (tp scan only, default on): peel bounce 0 onto the collapsed
-    primary-segment scan (augment_table_tp0 / tri_body_tp0) — same allclose
-    contract as the tp scan itself.
     """
     n_pix = n_rays if n_rays is not None else cfg.n_pixels
-    nb = pl.cdiv(n_pix, BLOCK)
-    if scan == "tp" and tp0:
-        # Fill the tp table's pad columns with the bounce-0 constants the
-        # peeled primary-segment scan reads (no-op for other scans; padded
-        # zero rows stay inert — see augment_table_tp0).
-        table = augment_table_tp0(table, _camera_constants(cfg)[4])
-    table = pad_table(table)
-    # The scene table lives in SMEM while it fits, FLATTENED to 1-D so rows
-    # aren't lane-padded (96 B/tri instead of 512 → ~8k tris); bigger scenes
-    # spill the 2-D table to VMEM (correct but ~10× slower scalar loads — the
-    # driver prefers the BVH kernel there, see docs/PERFORMANCE.md).
-    flat = int(table.shape[0]) <= SMEM_TABLE_MAX_TRIS
-    kernel = _make_kernel(cfg, int(table.shape[0]), n_samples, tri_unroll,
-                          interleave=interleave, flat_table=flat, scan=scan,
-                          emi_const=emi_const, classes=classes,
-                          scan_chunks=scan_chunks, tp0=tp0)
-    if flat:
-        table = table.reshape(-1)
-    table_space = pltpu.SMEM if flat else pltpu.VMEM
-    out, segs = pl.pallas_call(
-        kernel,
-        grid=(nb,),
-        in_specs=[
-            pl.BlockSpec(memory_space=table_space),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec((1, 3, SUB, LANE), lambda i: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, SUB, LANE), lambda i: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((nb, 3, SUB, LANE), jnp.float32),
-            jax.ShapeDtypeStruct((nb, 1, SUB, LANE), jnp.float32),
-        ),
-        interpret=_interpret(),
-    )(table, jnp.asarray(start_sample, jnp.int32).reshape(1),
-      jnp.asarray(pid_base, jnp.int32).reshape(1))
-    img = out.transpose(0, 2, 3, 1).reshape(nb * BLOCK, 3)
-    seg_flat = segs.reshape(nb * BLOCK)
-    return img[:n_pix], jnp.sum(seg_flat[:n_pix])
+    n_pad = pl.cdiv(n_pix, BLOCK) * BLOCK
+    kernel = _make_kernel(cfg, int(table.shape[0]), n_samples, scan=scan,
+                          emi_const=emi_const, classes=classes)
+    out = call_kernel(kernel, (flat_table(table),
+                               _scalars(start_sample, pid_base)), (), n_pad)
+    return out[:3, :n_pix].T, jnp.sum(out[3, :n_pix])
 
 
 @functools.partial(jax.jit, static_argnames=("cfg", "n_samples", "scan",
-                                              "emi_const", "classes",
-                                              "interleave", "scan_chunks"))
+                                             "emi_const", "classes"))
 def render_samples_pallas(table: jnp.ndarray, cfg: RenderConfig,
                           start_sample, n_samples: int, scan: str = "parity",
                           emi_const: tuple = (0.0, 0.0, 0.0),
-                          classes: tuple = (), interleave: int = 0,
-                          scan_chunks: int = 0) -> jnp.ndarray:
+                          classes: tuple = ()) -> jnp.ndarray:
     """SUM of `n_samples` progressive 1-spp frames: (n_pixels, 3) f32."""
     img, _ = render_samples_pallas_stats(table, cfg, start_sample, n_samples,
                                          scan=scan, emi_const=emi_const,
-                                         classes=classes, interleave=interleave,
-                                         scan_chunks=scan_chunks)
+                                         classes=classes)
     return img
 
 
 @functools.partial(jax.jit, static_argnames=("cfg", "n_samples", "scan",
-                                             "emi_const", "classes",
-                                             "interleave", "scan_chunks",
-                                             "tri_unroll"))
+                                             "emi_const", "classes"))
 def trace_rays_pallas_stats(table: jnp.ndarray, o: jnp.ndarray,
                             d: jnp.ndarray, cfg: RenderConfig,
                             n_samples: int, row_base=0, start_sample=0,
-                            tri_unroll: int = 0, scan: str = "parity",
+                            scan: str = "parity",
                             emi_const: tuple = (0.0, 0.0, 0.0),
-                            interleave: int = 0, classes: tuple = (),
-                            scan_chunks: int = 0):
+                            classes: tuple = ()):
     """SUM of `n_samples` CRN path traces along ARBITRARY rays (o, d) (N, 3).
 
-    The camera prologue is replaced by VMEM ray inputs (rays_input mode of
+    The camera prologue is replaced by ray inputs (rays_input mode of
     _make_kernel) — the kernel-speed radiance-probe entry the boundary
-    estimators batch their L_in/L_out evaluations through (VERDICT r4
-    item 2). Streams key on (row_base + row index, sample): two calls with
-    equal row counts and the same row_base share streams row-for-row, the
-    CRN contract the ± rim probes rely on. Returns (radiance_sum (N, 3),
-    segments). jnp twin: trace_paths with
-    ref_uniforms(row_ids, sample, 2*cfg.bounces) — pinned bitwise by
-    tests/test_kernels.py::test_trace_rays_kernel_matches_jnp_twin.
+    estimators batch their L_in/L_out evaluations through. Streams key on
+    (row_base + row index, sample): two calls with equal row counts and the
+    same row_base share streams row-for-row, the CRN contract the ± rim probes
+    rely on. Returns (radiance_sum (N, 3), segments). jnp twin: trace_paths
+    with ref_uniforms(row_ids, sample, 2*cfg.bounces).
     `cfg.width/height` are ignored (no camera); bounces/bg/boost/offset apply.
     """
     n = int(o.shape[0])
-    nb = pl.cdiv(n, BLOCK)
-    npad = nb * BLOCK
-    # Pad with a unit ray; padded rows trace junk that is sliced off below.
-    o_p = jnp.zeros((npad, 3), jnp.float32).at[:n].set(o)
-    d_p = jnp.zeros((npad, 3), jnp.float32).at[:n].set(d)
-    d_p = d_p.at[n:, 2].set(1.0)
-    o_blocks = o_p.reshape(nb, SUB, LANE, 3).transpose(0, 3, 1, 2)
-    d_blocks = d_p.reshape(nb, SUB, LANE, 3).transpose(0, 3, 1, 2)
-
-    table = pad_table(table)
-    flat = int(table.shape[0]) <= SMEM_TABLE_MAX_TRIS
-    kernel = _make_kernel(cfg, int(table.shape[0]), n_samples, tri_unroll,
-                          interleave=interleave, flat_table=flat, scan=scan,
+    n_pad = pl.cdiv(n, BLOCK) * BLOCK
+    # Padded rows trace a unit ray and are sliced off below.
+    d_planes = lane_planes(d, n_pad).at[2, n:].set(1.0)
+    kernel = _make_kernel(cfg, int(table.shape[0]), n_samples, scan=scan,
                           emi_const=emi_const, classes=classes,
-                          scan_chunks=scan_chunks, tp0=False, rays_input=True)
-    if flat:
-        table = table.reshape(-1)
-    table_space = pltpu.SMEM if flat else pltpu.VMEM
-    ray_block = pl.BlockSpec((1, 3, SUB, LANE), lambda i: (i, 0, 0, 0),
-                             memory_space=pltpu.VMEM)
-    out, segs = pl.pallas_call(
-        kernel,
-        grid=(nb,),
-        in_specs=[
-            pl.BlockSpec(memory_space=table_space),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            ray_block,
-            ray_block,
-        ],
-        out_specs=(
-            pl.BlockSpec((1, 3, SUB, LANE), lambda i: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, SUB, LANE), lambda i: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((nb, 3, SUB, LANE), jnp.float32),
-            jax.ShapeDtypeStruct((nb, 1, SUB, LANE), jnp.float32),
-        ),
-        interpret=_interpret(),
-    )(table, jnp.asarray(start_sample, jnp.int32).reshape(1),
-      jnp.asarray(row_base, jnp.int32).reshape(1), o_blocks, d_blocks)
-    img = out.transpose(0, 2, 3, 1).reshape(npad, 3)
-    seg_flat = segs.reshape(npad)
-    return img[:n], jnp.sum(seg_flat[:n])
+                          rays_input=True)
+    out = call_kernel(kernel, (flat_table(table),
+                               _scalars(start_sample, row_base)),
+                      (lane_planes(o, n_pad), d_planes), n_pad)
+    return out[:3, :n].T, jnp.sum(out[3, :n])
 
 
 def resolve_scan(scene: Scene, requested: str = "auto") -> str:
@@ -1211,8 +799,8 @@ def prepare_scan(scene: Scene, requested: str = "auto"):
 
 
 def render_pallas(scene: Scene, cfg: RenderConfig, total_spp: int,
-                  samples_per_call: int = 0, scan: str = "auto",
-                  interleave: int = 0, scan_chunks: int = 0) -> jnp.ndarray:
+                  samples_per_call: int = 0,
+                  scan: str = "auto") -> jnp.ndarray:
     """Progressive mean image via the megakernel (host loop over sample chunks)."""
     scan, table, emi, classes = prepare_scan(scene, scan)
     chunk = samples_per_call or total_spp
@@ -1221,8 +809,6 @@ def render_pallas(scene: Scene, cfg: RenderConfig, total_spp: int,
     while s < total_spp:
         n = min(chunk, total_spp - s)
         acc = acc + render_samples_pallas(table, cfg, s, n, scan=scan,
-                                          emi_const=emi, classes=classes,
-                                          interleave=interleave,
-                                          scan_chunks=scan_chunks)
+                                          emi_const=emi, classes=classes)
         s += n
     return acc / total_spp

@@ -1,7 +1,7 @@
 """In-kernel RNG — the reference's exact stateful generator as pure u32 jnp ops.
 
 These functions are plain jax.numpy on uint32 arrays, so the SAME code runs inside
-Pallas kernel bodies (VPU integer ops) and in ordinary jitted host code — which is
+Pallas kernel bodies and in ordinary jitted code — which is
 how the Pallas megakernel and the jnp parity integrator (integrators/parity.py)
 produce bitwise-identical sample streams.
 
@@ -24,8 +24,8 @@ _U32 = jnp.uint32
 
 
 def u32_to_f32(u):
-    """float(u) for u: uint32 — WITHOUT the direct u32→f32 cast, which Mosaic
-    (the Pallas TPU compiler) does not implement.
+    """float(u) for u: uint32, through two exact 16-bit halves (a form every
+    kernel compiler lowers, so kernel and jnp streams stay bitwise equal).
 
     Split into 16-bit halves: f32(hi)·2^16 is exact (exponent shift of an exact
     ≤16-bit integer), f32(lo) is exact, and the single addition rounds the exact
@@ -40,9 +40,9 @@ def u32_to_f32(u):
 def as_u32(x):
     """Reinterpret signed 32-bit as uint32.
 
-    Mosaic's tpu.bitcast only accepts VECTORS — scalars must stay in wrapping
-    int32 arithmetic (two's-complement ≡ u32 for +, *) until they combine with a
-    vector. Only call this on array values inside kernels."""
+    Scalars stay in wrapping int32 arithmetic (two's-complement ≡ u32 for +, *)
+    until they combine with a vector; only call this on array values inside
+    kernels."""
     x = jnp.asarray(x)
     if x.dtype == _U32:
         return x

@@ -1,6 +1,6 @@
 // Native scene-container parser.
 //
-// TPU-native counterpart of the reference's loadModel file parse
+// Native counterpart of the reference's loadModel file parse
 // (/root/reference/test/RaytraceTest.cpp:87-198). Format:
 //   [i32 nMeshes] then per mesh:
 //     [i32 nQuads][f32 fileAlbedo]

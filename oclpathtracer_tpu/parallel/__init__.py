@@ -1,17 +1,18 @@
 """Distribution layer — device mesh, tile sharding, collective gradient reduction.
 
 The reference has NO multi-device code (SURVEY.md §2.3: single Device*, single
-queue, zero network symbols) — this layer is the new design territory the TPU build
-adds. Mapping per SURVEY.md §5.8:
+queue, zero network symbols) — this layer is new design territory. Mapping per
+SURVEY.md §5.8:
 
-  * mesh: 1-D `Mesh(('tiles',))` over all chips (extends to ('hosts','tiles') on a
-    multi-host pod via jax.distributed.initialize);
+  * mesh: 1-D `Mesh(('tiles',))` over all cards (every card of a host reaches
+    every other over NVLink at the same rate, so the mesh follows the algorithm
+    alone; several hosts extend the same axis via jax.distributed.initialize);
   * framebuffer pixels and ray batches shard over 'tiles'; scene geometry and
-    material parameters replicate per chip;
+    material parameters replicate per card;
   * sample streams stay bitwise identical under any layout because every uniform is
     keyed by ABSOLUTE pixel id (core/rng.py), never a shard-local index;
-  * parameter gradients all-reduce with jax.lax.psum over ICI (the renderer analogue
-    of data-parallel gradient sync).
+  * parameter gradients all-reduce with jax.lax.psum (the renderer analogue of
+    data-parallel gradient sync).
 """
 
 from oclpathtracer_tpu.parallel.mesh import default_mesh, tile_sharding

@@ -1,9 +1,9 @@
 """Mesh construction and canonical shardings.
 
 One axis, 'tiles': pixels/rays are embarrassingly parallel, so a 1-D layout wastes
-nothing and keeps every collective (only the gradient psum and debug all_gathers) on
-ICI neighbors. Multi-host extends the same axis across processes — XLA routes the
-segments over DCN without code changes (SURVEY.md §5.8).
+nothing; the only collectives are the gradient psum and debug all_gathers, which
+XLA hands to NCCL over NVLink between the cards of a host. Multi-host extends the
+same axis across processes without code changes (SURVEY.md §5.8).
 """
 
 from __future__ import annotations

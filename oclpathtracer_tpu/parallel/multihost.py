@@ -1,20 +1,19 @@
 """Multi-host runtime — jax.distributed bring-up and host-spanning meshes.
 
-The reference has no distributed story at all (SURVEY.md §2.3). On TPU pods the
-runtime work is done by `jax.distributed.initialize()` + XLA collectives; this
+The reference has no distributed story at all (SURVEY.md §2.3). Across processes
+the runtime work is done by `jax.distributed.initialize()` + XLA collectives; this
 module wraps bring-up with the framework's conventions:
 
-  * one GLOBAL 1-D 'tiles' axis across every chip of every host (ICI within a
-    slice, DCN across hosts — XLA routes by mesh position; the only collective in
-    training is the small parameter-gradient psum, so DCN traffic is parameters,
-    never rays);
+  * one GLOBAL 1-D 'tiles' axis across every card of every process (NVLink
+    between the cards of a host; the only collective in training is the small
+    parameter-gradient psum, so cross-host traffic is parameters, never rays);
   * each host feeds only its addressable shard of the pixel space
     (host_local_pixel_slice below) — no host ever materializes the full image
     except for explicit debug gathers;
   * sample streams key on absolute pixel ids (core/rng.py), so the N-host render
     is bitwise identical to the 1-host render — verified on the virtual CPU mesh
     by tests/test_parallel.py, which is exactly the simulation SURVEY.md §4
-    prescribes for multi-node logic without a pod.
+    prescribes for multi-node logic without a cluster.
 """
 
 from __future__ import annotations
@@ -33,8 +32,8 @@ def initialize(coordinator_address: Optional[str] = None,
                process_id: Optional[int] = None) -> None:
     """Bring up the multi-host runtime (no-op for single-process).
 
-    On Cloud TPU the arguments auto-detect from the metadata server; elsewhere
-    pass them explicitly (coordinator 'host:port', world size, rank).
+    Pass the arguments explicitly (coordinator 'host:port', world size, rank):
+    nothing on a plain GPU host tells JAX of a cluster.
     """
     if num_processes is not None and num_processes > 1 or coordinator_address:
         jax.distributed.initialize(
@@ -45,7 +44,7 @@ def initialize(coordinator_address: Optional[str] = None,
 
 
 def global_mesh() -> Mesh:
-    """1-D 'tiles' mesh over every chip in the job (all hosts)."""
+    """1-D 'tiles' mesh over every device in the job (all hosts)."""
     return Mesh(np.asarray(jax.devices()), (TILE_AXIS,))
 
 
@@ -59,7 +58,7 @@ def host_local_pixel_slice(n_pixels: int) -> slice:
     strides raw device ids per process (e.g. rank 1's CPU devices are ids
     2048, 2049), so ids are neither dense nor usable as shard indices.
 
-    Non-divisible pixel counts pad-and-mask (VERDICT r4 item 8): each device
+    Non-divisible pixel counts pad-and-mask: each device
     owns ceil(n/n_dev) padded rows (matching parallel.sharded.shard_pixels),
     and the returned slice is clipped to the REAL pixel range — a trailing
     host may own fewer (or zero) real pixels, never an error.

@@ -7,8 +7,7 @@ Sample streams are sharding-invariant because the RNG keys on absolute pixel id
 (core/rng.py, SURVEY.md §7 hard-part 4).
 
 The reference comparison point: it cannot do any of this (single device, single
-queue — SURVEY.md §2.3); this module is where the TPU build's scaling capability
-lives.
+queue — SURVEY.md §2.3); this module is where the multi-card scaling lives.
 """
 
 from __future__ import annotations
@@ -18,7 +17,6 @@ from typing import Callable, Optional
 
 import jax
 import jax.numpy as jnp
-from jax.experimental.shard_map import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
 from oclpathtracer_tpu.config import RenderConfig
@@ -37,8 +35,7 @@ def padded_pixel_count(n_pixels: int, n_dev: int) -> int:
 def shard_pixels(cfg: RenderConfig, mesh: Mesh) -> jnp.ndarray:
     """Absolute pixel ids laid out for sharding over 'tiles'.
 
-    Length = n_pixels rounded UP to a multiple of n_devices (pad-and-mask,
-    VERDICT r4 item 8): tail entries repeat the last pixel id, so padded lanes
+    Length = n_pixels rounded UP to a multiple of n_devices (pad-and-mask,): tail entries repeat the last pixel id, so padded lanes
     redundantly re-render one real pixel (absolute-id RNG keeps them bitwise
     identical to it) and assembly simply drops the tail —
     render_progressive_sharded slices mean()[:n_pixels]. For the canonical
@@ -71,12 +68,12 @@ def make_sharded_render_step(cfg: RenderConfig, mesh: Mesh, samples_per_step: in
         acc_sum, _ = jax.lax.scan(body, acc_sum, samples)
         return acc_sum, acc_count + samples_per_step
 
-    sharded = shard_map(
+    sharded = jax.shard_map(
         local_step,
         mesh=mesh,
         in_specs=(P(TILE_AXIS), P(), P(), P(TILE_AXIS), P(), P()),
         out_specs=(P(TILE_AXIS), P()),
-        check_rep=False,
+        check_vma=False,
     )
 
     @functools.partial(jax.jit, donate_argnums=(0,))

@@ -1,4 +1,4 @@
-"""Tile-sharded rendering with the Pallas megakernel — the fast multi-chip path.
+"""Tile-sharded rendering with the Pallas megakernel — the fast multi-card path.
 
 parallel/sharded.py shards the jnp integrator (the semantic reference); this module
 shards the fused megakernel: each device runs the kernel over its contiguous range
@@ -10,15 +10,12 @@ path; the assembled image is just the sharded output's layout.
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental.shard_map import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from oclpathtracer_tpu.config import RenderConfig
-from oclpathtracer_tpu.kernels.megakernel import BLOCK, render_samples_pallas_stats
+from oclpathtracer_tpu.kernels.megakernel import render_samples_pallas_stats
 from oclpathtracer_tpu.parallel.mesh import TILE_AXIS
 from oclpathtracer_tpu.scene.types import Scene
 
@@ -26,23 +23,14 @@ from oclpathtracer_tpu.scene.types import Scene
 def make_sharded_kernel_step(cfg: RenderConfig, mesh: Mesh, n_samples: int,
                              scan: str = "parity",
                              emi_const: tuple = (0.0, 0.0, 0.0),
-                             classes: tuple = (), kernel: str = "megakernel",
-                             interleave: int = 0):
+                             classes: tuple = ()):
     """Jitted (table, start_sample) → (img (n_pixels,3) sharded, segments ()).
 
-    Requires n_pixels divisible by n_devices × BLOCK-alignment per shard (the
-    canonical 512² image divides any power-of-two mesh). scan/emi_const/classes
-    as in megakernel.render_samples_pallas_stats (the scan choice is
+    Requires n_pixels divisible by the device count (the canonical 512² image
+    divides any power-of-two mesh). scan/emi_const/classes as in
+    megakernel.render_samples_pallas_stats (the scan choice is
     layout-invariant: RNG keys on absolute pixel ids either way).
-
-    kernel: "megakernel" (fixed bounce loop) or "wavefront" (in-lane path
-    regeneration, kernels/wavefront.py — the winner at 16 bounces). Both key
-    RNG on absolute pixel ids, so both are bitwise layout-invariant;
-    `interleave` is forwarded (megakernel output is interleave-invariant,
-    wavefront k>1 reorders per-lane accumulation exactly as on one device).
     """
-    if kernel not in ("megakernel", "wavefront"):
-        raise ValueError(f"kernel must be 'megakernel' or 'wavefront', got {kernel!r}")
     n_dev = mesh.shape[TILE_AXIS]
     n_pix = cfg.n_pixels
     if n_pix % n_dev != 0:
@@ -51,27 +39,16 @@ def make_sharded_kernel_step(cfg: RenderConfig, mesh: Mesh, n_samples: int,
 
     def local_render(table, start_sample):
         base = jax.lax.axis_index(TILE_AXIS) * local_n
-        if kernel == "wavefront":
-            from oclpathtracer_tpu.kernels.wavefront import (
-                render_samples_wavefront_stats,
-            )
-
-            img, segs = render_samples_wavefront_stats(
-                table, cfg, start_sample, n_samples, pid_base=base,
-                n_rays=local_n, scan=scan, emi_const=emi_const,
-                classes=classes, interleave=interleave)
-        else:
-            img, segs = render_samples_pallas_stats(
-                table, cfg, start_sample, n_samples, pid_base=base,
-                n_rays=local_n, scan=scan, emi_const=emi_const,
-                classes=classes, interleave=interleave)
+        img, segs = render_samples_pallas_stats(
+            table, cfg, start_sample, n_samples, pid_base=base,
+            n_rays=local_n, scan=scan, emi_const=emi_const, classes=classes)
         return img, jax.lax.psum(segs, TILE_AXIS)
 
-    sharded = shard_map(
+    sharded = jax.shard_map(
         local_render, mesh=mesh,
         in_specs=(P(), P()),
         out_specs=(P(TILE_AXIS), P()),
-        check_rep=False,
+        check_vma=False,
     )
     return jax.jit(sharded)
 

@@ -24,24 +24,6 @@ from oclpathtracer_tpu.render import checkpoint as ckpt
 from oclpathtracer_tpu.scene.types import Scene
 
 
-# Auto-backend crossover: the linear megakernel (flat 1-D SMEM table, 96 B/tri,
-# hard cap ~8k tris) beats the BVH kernels only while the brute-force scan cost
-# is under the BVH's traversal overhead. Remeasured round 4 with tp scans on
-# BOTH kernels (palette sphere_field, 256², 4-bounce, paired medians): 324
-# tris bvh/linear 0.983, 484 → 1.030, 644 → 1.076, 964 → 1.088, 1.3k → 1.113,
-# 2.6k → 1.500 — crossover ≈ 480 tris (round 3's 1024 predated BVH tp leaves).
-LINEAR_KERNEL_MAX_TRIS = 480
-
-# Beyond the crossover, auto picks the 8-WIDE bitmask-stack BVH kernel
-# (kernels/wide_bvh.py) over the skip-link walk: round-5 paired medians
-# (sphere_field, 256², 4 bounces, wide/skip ratio at each kernel's leaf 32):
-# 1.3k 1.044, 2.6k 1.035, 5.1k 1.091, 7.7k 1.139, 10.2k 1.121, 16.6k 1.073 —
-# except a reproducible wide-leaf-32 tree-shape pocket at the 12.8k scene
-# (0.78-0.82), which leaf 64 flips to 1.10 (skip-walk is leaf-size-flat there:
-# skip64/skip32 = 0.993). Hence the leaf-size switch below.
-WIDE_BVH_LEAF_SWITCH_TRIS = 12_000
-
-
 def make_render_step(cfg: RenderConfig, samples_per_step: int,
                      sample_fn: Optional[Callable] = None):
     """Build a jitted step: (Accumulator, Scene, start_sample, key) → Accumulator.
@@ -65,108 +47,25 @@ def make_render_step(cfg: RenderConfig, samples_per_step: int,
 
 
 def make_kernel_render_step(scene: Scene, cfg: RenderConfig,
-                            samples_per_step: int, backend: str = "auto",
-                            scan: str = "auto"):
-    """Build a jitted step (Accumulator, start_sample) → Accumulator over one of
-    the fused Pallas kernels. backend ∈ {auto, pallas, bvh, widebvh,
-    wavefront}; auto picks the linear-scan megakernel up to the crossover and
-    the 8-wide bitmask-stack BVH kernel beyond (the skip-link walk stays as
-    the explicit "bvh" option). scan ∈ {auto, parity, fast, tp}: auto uses the fastest scan
-    the scene's materials support (megakernel.resolve_scan — tp's class fusion,
-    else the division-free fast scan, else the reference-exact parity scan),
-    for every backend including "bvh" (tp leaf tests, round 4).
-    Kernel sample streams are the reference's RNG keyed by absolute
-    (pixel, sample) — `seed`/`key` have no effect on these backends.
+                            samples_per_step: int, scan: str = "auto"):
+    """Build a jitted step (Accumulator, start_sample) → Accumulator over the
+    fused megakernel (kernels/megakernel.py) — the "auto" backend at every
+    scene size. scan ∈ {auto, parity, fast, tp}: auto uses the fastest scan
+    the scene's materials support (megakernel.resolve_scan). Kernel sample
+    streams are the reference's RNG keyed by absolute (pixel, sample) —
+    `seed`/`key` have no effect here.
     """
-    from oclpathtracer_tpu.kernels.megakernel import prepare_scan
+    from oclpathtracer_tpu.kernels.megakernel import (
+        prepare_scan, render_samples_pallas_stats)
 
-    n_tris = int(scene.geometry.p1.shape[0])
-    if backend == "auto":
-        if n_tris > LINEAR_KERNEL_MAX_TRIS:
-            backend = "widebvh"
-        elif cfg.bounces > 8:
-            # Deep bounce caps: mean path length ≪ cap, so the fixed-loop
-            # megakernel wastes most lanes while the path-regeneration kernel
-            # stays ~100% occupied — measured 16-bounce Cornell same-session:
-            # wavefront 821 vs megakernel 785 Mrays/s (BASELINE.md; the
-            # megakernel also gates its 16-way interleave/tp0 peel off past 8
-            # bounces for compile time, widening the gap).
-            backend = "wavefront"
-        else:
-            backend = "pallas"
-
-    if backend == "pallas":
-        from oclpathtracer_tpu.kernels.megakernel import (
-            render_samples_pallas_stats)
-
-        scan, table, emi, classes = prepare_scan(scene, scan)
-
-        def chunk(start):
-            img, _ = render_samples_pallas_stats(table, cfg, start,
-                                                 samples_per_step, scan=scan,
-                                                 emi_const=emi, classes=classes)
-            return img
-    elif backend == "wavefront":
-        from oclpathtracer_tpu.kernels.wavefront import (
-            render_samples_wavefront_stats)
-
-        scan, table, emi, classes = prepare_scan(scene, scan)
-
-        def chunk(start):
-            img, _ = render_samples_wavefront_stats(table, cfg, start,
-                                                    samples_per_step, scan=scan,
-                                                    emi_const=emi,
-                                                    classes=classes)
-            return img
-    elif backend == "widebvh":
-        from oclpathtracer_tpu.kernels.wide_bvh import (
-            pack_wide_bvh_scene, render_samples_wide_bvh_stats)
-
-        from oclpathtracer_tpu.kernels.megakernel import (
-            fast_scan_supported, scene_emissive_const, tp_scan_supported)
-
-        leaf = 32 if n_tris <= WIDE_BVH_LEAF_SWITCH_TRIS else 64
-        # Same scan ladder + validation as prepare_bvh_scan.
-        if scan == "auto":
-            scan = ("tp" if tp_scan_supported(scene)
-                    else "fast" if fast_scan_supported(scene) else "parity")
-        elif scan == "tp" and not tp_scan_supported(scene):
-            raise ValueError("scan='tp' requested but unsupported; use 'auto'")
-        elif scan == "fast" and not fast_scan_supported(scene):
-            raise ValueError("scan='fast' requested but unsupported; use 'auto'")
-        emi = scene_emissive_const(scene) if scan == "fast" else (0.0, 0.0, 0.0)
-        wtable, wn_f, wn_i, depth, classes = pack_wide_bvh_scene(
-            scene, leaf_size=leaf, scan=scan)
-
-        def chunk(start):
-            img, _ = render_samples_wide_bvh_stats(
-                wtable, wn_f, wn_i, cfg, start, samples_per_step,
-                max_leaf=leaf, max_depth=depth, scan=scan, emi_const=emi,
-                classes=classes)
-            return img
-    elif backend == "bvh":
-        from oclpathtracer_tpu.kernels.bvh_megakernel import (
-            prepare_bvh_scan, render_samples_bvh_stats)
-
-        # auto = the fastest leaf test the scene supports (tp -> fast ->
-        # parity, the same ladder as the linear kernel); explicit requests
-        # validate against their support predicates and raise.
-        scan, table, nodes_f, nodes_i, emi, classes = prepare_bvh_scan(
-            scene, scan, leaf_size=32)
-
-        def chunk(start):
-            img, _ = render_samples_bvh_stats(table, nodes_f, nodes_i, cfg,
-                                              start, samples_per_step,
-                                              max_leaf=32, scan=scan,
-                                              emi_const=emi, window=4,
-                                              classes=classes)
-            return img
-    else:
-        raise ValueError(f"unknown kernel backend {backend!r}")
+    scan, table, emi, classes = prepare_scan(scene, scan)
 
     @functools.partial(jax.jit, donate_argnums=(0,))
     def step(acc: Accumulator, start_sample):
-        return acc.add_sum(chunk(start_sample), samples_per_step)
+        img, _ = render_samples_pallas_stats(table, cfg, start_sample,
+                                             samples_per_step, scan=scan,
+                                             emi_const=emi, classes=classes)
+        return acc.add_sum(img, samples_per_step)
 
     return step
 
@@ -185,10 +84,10 @@ def render_progressive(scene: Scene, cfg: RenderConfig, total_spp: int,
     sample counter IS the checkpoint — tiny, exact restart at any sample).
 
     backend: "jnp" (default; the lax.scan megakernel in integrators/path.py, uses
-    `seed`) or a fused Pallas kernel — "auto"/"pallas"/"bvh"/"widebvh"/"wavefront" (see
+    `seed`) or "auto", the fused megakernel (see
     make_kernel_render_step; reference RNG streams, `seed` ignored). sample_fn
-    forces the jnp path. scan: triangle-scan arithmetic for the kernel backends
-    ("auto"/"parity"/"fast" — see make_kernel_render_step).
+    forces the jnp path. scan: triangle-scan arithmetic for the kernel backend
+    ("auto"/"parity"/"fast"/"tp" — see make_kernel_render_step).
     """
     spb = samples_per_step or max(cfg.samples_per_batch, 1)
     key = rng.make_key(cfg.seed if seed is None else seed)
@@ -199,9 +98,11 @@ def render_progressive(scene: Scene, cfg: RenderConfig, total_spp: int,
         loaded = ckpt.load(checkpoint_path)
         if loaded is not None:
             acc, start = loaded
-    use_kernel = sample_fn is None and backend != "jnp"
+    if backend not in ("jnp", "auto"):
+        raise ValueError(f"unknown backend {backend!r}")
+    use_kernel = sample_fn is None and backend == "auto"
     if use_kernel:
-        step = make_kernel_render_step(scene, cfg, spb, backend, scan=scan)
+        step = make_kernel_render_step(scene, cfg, spb, scan=scan)
     else:
         step = make_render_step(cfg, spb, sample_fn)
 

@@ -1,6 +1,6 @@
 """Runtime layer — device discovery, compilation cache, profiling, native bindings.
 
-This package is the TPU-native answer to the reference's Adl layers 0-3
+This package is the JAX-side answer to the reference's Adl layers 0-3
 (/root/reference/Adl: clew loader, DeviceCL, Buffer<T>, KernelManager/KernelBuilder,
 Launcher — SURVEY.md §1). JAX/XLA/PJRT already provide device bring-up, typed device
 arrays, kernel compilation + caching, and launch; this layer wraps those facilities

@@ -1,4 +1,4 @@
-"""Buffer capabilities — the Adl Buffer<T>/BufferUtils surface, TPU-native.
+"""Buffer capabilities — the Adl Buffer<T>/BufferUtils surface, on jax.Array.
 
 The reference's typed device buffer (Buffer<T>, Adl.h:200-265 / Adl.inl:130-491)
 exposes: allocate, write/read (H2D/D2H/D2D), clear/fill, map/unmap (getHostPtr),
@@ -63,7 +63,7 @@ def migrate(buf: jax.Array, device_or_sharding) -> jax.Array:
     """≡ BufferUtils::map<TYPE, COPY> cross-backend migration (Adl.inl:304-351).
 
     The reference stages device→device copies through a host temp (Adl.inl:338-346);
-    jax.device_put lets XLA pick the direct path (ICI for chip→chip)."""
+    jax.device_put lets XLA pick the direct path (NVLink between cards)."""
     return jax.device_put(buf, device_or_sharding)
 
 

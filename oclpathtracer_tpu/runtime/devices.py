@@ -1,11 +1,11 @@
 """Device discovery and queries.
 
-TPU-native equivalent of the reference's device bring-up stack (SURVEY.md §3.1):
+JAX equivalent of the reference's device bring-up stack (SURVEY.md §3.1):
 clewInit → DeviceCL::initialize → platform/device enumeration → context + queue
 (clew.cpp:165-210, AdlCL.cpp:68-271). PJRT does all of that inside `jax.devices()`;
 this module exposes the same *queries* the reference offers (name, vendor, memory
 totals/usage — Adl.h:139-194, AdlCL.cpp:385-483) plus mesh construction helpers for
-the multi-chip path the reference never had.
+the multi-device path the reference never had.
 """
 
 from __future__ import annotations
@@ -63,7 +63,7 @@ def make_mesh(axis_sizes: Sequence[int], axis_names: Sequence[str],
     """Build a device mesh, e.g. make_mesh((8,), ('tiles',)).
 
     The single entry point the parallel layer uses; tests pass the 8-device virtual
-    CPU platform, production passes a pod slice.
+    CPU platform, production passes the GPUs of a host.
     """
     devs = np.asarray(devices if devices is not None else jax.devices())
     total = int(np.prod(axis_sizes))

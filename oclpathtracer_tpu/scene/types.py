@@ -1,8 +1,8 @@
 """Scene pytrees (SoA, static shapes — XLA-friendly).
 
 The reference packs scene data into 64-byte AoS records (Triangle/Material structs,
-RaytraceTest.cpp:50-76) for OpenCL struct layout. On TPU we want SoA jnp arrays:
-the intersector broadcasts (N rays, T tris) over the VPU, so each triangle component
+RaytraceTest.cpp:50-76) for OpenCL struct layout. Here we want SoA jnp arrays:
+the intersector broadcasts (N rays, T tris) elementwise, so each triangle component
 must be a contiguous vector, not an interleaved struct.
 
 All classes are NamedTuples and therefore pytrees: they flow through jit/vmap/grad

@@ -1,7 +1,7 @@
 """Observability counters — samples/s, rays/s, per-phase timings.
 
 ≡ SURVEY.md §5.5: the reference's observability is debug printf + memory getters +
-compile callbacks; the TPU build's counterpart is throughput counters around the
+compile callbacks; this framework's counterpart is throughput counters around the
 jitted steps (compile events surface as the first-call latency, logged here).
 """
 

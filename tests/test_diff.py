@@ -126,7 +126,7 @@ def _occluder_scene():
 @pytest.mark.slow  # 2 full edge-sampled gradients + 6 FD renders
 def test_vertex_grads_match_fd_on_silhouette():
     """Edge-aware vertex gradients match central FD on silhouette-moving
-    coordinates (BASELINE.json config 5 / VERDICT r3 item 1). Plain AD gives
+    coordinates (BASELINE.json config 5). Plain AD gives
     exactly ZERO here (the occluder is black — no interior term at all), so
     every matched digit comes from the boundary estimator."""
     from oclpathtracer_tpu.diff import make_edge_aware_loss_fn
@@ -208,7 +208,7 @@ def _with_spec_roughness(scene, r):
 
 
 def test_roughness_grads_match_fd_direct(scene):
-    """GGX roughness gradients (SceneParams.roughness — VERDICT r4 item 3)
+    """GGX roughness gradients (SceneParams.roughness)
     match central FD through the NEE/direct estimator, where the lobe is
     EVALUATED at the sampled light direction and hence smooth in roughness.
     (Through the BRDF-sampling path estimator the weight is r-independent at

@@ -43,7 +43,7 @@ def test_fast_gradient_equals_twin_gradient(scene):
 @pytest.mark.slow  # two full edge-sampled gradients (jnp + kernel probes)
 def test_kernel_probe_boundary_grads_match_jnp_probes():
     """The primary boundary estimator with Pallas arbitrary-ray probes agrees
-    with the jnp-probe version (VERDICT r4 item 2 plumbing). Streams differ
+    with the jnp-probe version. Streams differ
     between the two probe backends, so agreement is to MC noise — checked on
     the occluder scene's dominant silhouette coordinates."""
     from tests.test_diff import _occluder_scene

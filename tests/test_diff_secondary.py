@@ -1,4 +1,4 @@
-"""Secondary-visibility (light-rim) vertex-gradient tests — VERDICT r4 item 1.
+"""Secondary-visibility (light-rim) vertex-gradient tests.
 
 The round-4 framework documented AREA-LIGHT vertex gradients as wrong: the
 light's rim as seen from every bounce vertex is a visibility boundary the

@@ -21,8 +21,6 @@ from oclpathtracer_tpu.kernels.grad_megakernel import (
     render_grads_pallas,
 )
 
-pytestmark = pytest.mark.slow  # adjoint kernel in interpret mode
-
 CFG = RenderConfig(width=16, height=16, bounces=3)
 
 
@@ -48,8 +46,7 @@ def test_forward_bitwise_matches_tp_megakernel(grad_scene):
     img1, _ = render_grads_pallas(table, ct, CFG, 0, 2, C, with_grads=False)
     _, t2, emi, classes = prepare_scan(scene, "tp")
     img2, _ = render_samples_pallas_stats(t2, CFG, 0, 2, scan="tp",
-                                          emi_const=emi, classes=classes,
-                                          interleave=1, tp0=False)
+                                          emi_const=emi, classes=classes)
     np.testing.assert_array_equal(np.asarray(img1), np.asarray(img2))
 
 
@@ -118,7 +115,7 @@ def test_adjoint_is_right_derivative_at_boundary(grad_scene, weights):
 
 
 def test_adjoint_semantics_where_clamp_binds(grad_scene, weights):
-    """VERDICT r4 item 10: exercise the adjoint where max(radiance, 0)
+    """Exercise the adjoint where max(radiance, 0)
     actually BINDS mid-accumulation with nonzero carried state. A class with
     NEGATIVE albedo (outside the physical domain) makes odd-bounce paths
     carry negative masks, so per-sample radiance goes negative and the clamp
@@ -231,7 +228,7 @@ def test_sharded_kernel_step_matches_single(grad_scene, cpu_devices):
     img, _ = render_grads_pallas(table, ct, cfg, 0, 2, C, with_grads=False)
     # 0.7x: a target EQUAL to the render makes (a - target) == 0 bitwise and
     # loss == 0 on both paths — which let a 3x loss-normalization bug slip
-    # through this assert once (ADVICE r4). Keep the loss nonzero.
+    # through this assert once. Keep the loss nonzero.
     target = img / 2 * 0.7
 
     step1 = make_kernel_train_step(scene, cfg, spp=2, lr=1e-2)

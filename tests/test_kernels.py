@@ -1,4 +1,5 @@
-"""Pallas megakernel tests (interpret mode on CPU; compiled on TPU via bench).
+"""Pallas megakernel tests (interpret mode on CPU; chip_smoke.py runs the compiled
+kernels on the GPU).
 
 The exactness anchor: the megakernel consumes the reference's RNG streams
 (kernels/rng.py ≡ core/rng.ref_*), so its output must match the jnp parity
@@ -18,8 +19,6 @@ from oclpathtracer_tpu.kernels.megakernel import (
     render_samples_pallas,
 )
 from oclpathtracer_tpu.integrators.parity import render_sample_ref
-
-pytestmark = pytest.mark.slow  # Pallas interpret-mode kernels dominate suite wall-time
 
 CFG = RenderConfig(width=64, height=32, bounces=6)  # 2048 px = 2 blocks
 
@@ -44,7 +43,7 @@ def test_megakernel_matches_parity_integrator(scene):
 
 def test_trace_rays_kernel_matches_jnp_twin(scene):
     """Arbitrary-ray entry (trace_rays_pallas_stats, rays_input mode): the
-    camera prologue is replaced by VMEM ray inputs and the stream's first
+    camera prologue is replaced by ray inputs and the stream's first
     draws are bounce 0's — allclose to trace_paths on ref_uniforms(row, s,
     2*bounces), including the row_base CRN offset."""
     from oclpathtracer_tpu.integrators.parity import ref_uniforms
@@ -216,7 +215,7 @@ def test_tp_scan_far_origin_unsupported(scene):
 
 def test_prepare_scan_explicit_tp_raises(scene):
     """Explicitly requested 'tp'/'fast' on an unsupported scene must raise,
-    not render silently wrong (ADVICE r2)."""
+    not render silently wrong."""
     from oclpathtracer_tpu.kernels.megakernel import prepare_scan
 
     s3 = _with_many_classes(scene)
@@ -227,36 +226,6 @@ def test_prepare_scan_explicit_tp_raises(scene):
     # auto on the same scene is fine (resolves parity)
     scan, _, _, _ = prepare_scan(s3, "auto")
     assert scan == "parity"
-
-
-def test_bvh_tp_leaf_matches_parity(scene):
-    """Round-4: the BVH kernel's tp leaf test (prepare_bvh_scan) must agree
-    with its reference-exact parity leaf test — same segments, allclose
-    images — so >1k-tri scenes get the fastest scan too (VERDICT r3 item 6c)."""
-    from oclpathtracer_tpu.kernels.bvh_megakernel import (
-        pack_bvh_scene, prepare_bvh_scan, render_samples_bvh_stats)
-
-    scan, table, nf, ni, emi, classes = prepare_bvh_scan(scene, "auto",
-                                                         leaf_size=4)
-    assert scan == "tp" and len(classes) == 5
-    img_t, segs_t = render_samples_bvh_stats(table, nf, ni, CFG, 0, 1,
-                                             max_leaf=4, scan="tp",
-                                             classes=classes)
-    table_p, nf_p, ni_p = pack_bvh_scene(scene, leaf_size=4)
-    img_p, segs_p = render_samples_bvh_stats(table_p, nf_p, ni_p, CFG, 0, 1,
-                                             max_leaf=4)
-    assert abs(float(segs_p) - float(segs_t)) <= 2.0
-    np.testing.assert_allclose(np.asarray(img_t), np.asarray(img_p),
-                               rtol=1e-4, atol=1e-4)
-
-
-def test_bvh_explicit_tp_raises_when_unsupported(scene):
-    """An explicitly requested tp leaf test on a tp-unsupported scene must
-    raise (silent substitution would hide which arithmetic ran)."""
-    from oclpathtracer_tpu.kernels.bvh_megakernel import prepare_bvh_scan
-
-    with pytest.raises(ValueError, match="tp"):
-        prepare_bvh_scan(_with_many_classes(scene), "tp")
 
 
 def test_tp_scan_matches_parity_megakernel(scene):
@@ -274,68 +243,6 @@ def test_tp_scan_matches_parity_megakernel(scene):
                                                 classes=classes)
     assert abs(float(segs_p) - float(segs_t)) <= 2.0
     np.testing.assert_allclose(np.asarray(img_t), np.asarray(img_p),
-                               rtol=1e-4, atol=1e-4)
-
-
-def test_tp_scan_matches_parity_wavefront(scene):
-    from oclpathtracer_tpu.kernels.megakernel import prepare_scan
-    from oclpathtracer_tpu.kernels.wavefront import render_samples_wavefront_stats
-
-    scan, table, emi, classes = prepare_scan(scene, "tp")
-    img_p, segs_p = render_samples_wavefront_stats(pack_scene(scene), CFG, 0, 2,
-                                                   interleave=1, scan="parity")
-    img_t, segs_t = render_samples_wavefront_stats(table, CFG, 0, 2,
-                                                   interleave=1, scan="tp",
-                                                   classes=classes)
-    assert abs(float(segs_p) - float(segs_t)) <= 2.0
-    np.testing.assert_allclose(np.asarray(img_t), np.asarray(img_p),
-                               rtol=1e-4, atol=1e-4)
-
-
-def test_tp0_peeled_bounce_matches_generic_tp(scene):
-    """The bounce-0 specialized scan (tp0: collapsed single-dot forms against
-    augment_table_tp0's precomputed columns) must agree with the generic tp
-    scan: same segments, allclose images (algebraically equal, rounds
-    differently)."""
-    from oclpathtracer_tpu.kernels.megakernel import (
-        prepare_scan, render_samples_pallas_stats)
-
-    scan, table, emi, classes = prepare_scan(scene, "tp")
-    kw = dict(scan="tp", classes=classes, interleave=1, scan_chunks=1)
-    img_g, segs_g = render_samples_pallas_stats(table, CFG, 0, 2, tp0=False,
-                                                **kw)
-    img_0, segs_0 = render_samples_pallas_stats(table, CFG, 0, 2, tp0=True,
-                                                **kw)
-    assert abs(float(segs_g) - float(segs_0)) <= 2.0
-    np.testing.assert_allclose(np.asarray(img_0), np.asarray(img_g),
-                               rtol=1e-4, atol=1e-4)
-
-
-def test_scan_chunks_parity_bitwise_tp_allclose(scene):
-    """Chunked best-hit scan: parity must be BITWISE-identical to the in-order
-    scan (float '<' total order + earlier-chunk tie preference preserves the
-    global first-min); tp carries the ulp/allclose contract. Segment counts
-    agree for both."""
-    from oclpathtracer_tpu.kernels.megakernel import (
-        prepare_scan, render_samples_pallas_stats)
-
-    img_p1, segs_p1 = render_samples_pallas_stats(
-        pack_scene(scene), CFG, 0, 2, scan="parity", interleave=1,
-        scan_chunks=1)
-    img_p3, segs_p3 = render_samples_pallas_stats(
-        pack_scene(scene), CFG, 0, 2, scan="parity", interleave=1,
-        scan_chunks=3)
-    assert float(segs_p1) == float(segs_p3)
-    assert (np.asarray(img_p1) == np.asarray(img_p3)).all()
-
-    scan, table, emi, classes = prepare_scan(scene, "tp")
-    kw = dict(scan="tp", classes=classes, interleave=1, tp0=False)
-    img_t1, segs_t1 = render_samples_pallas_stats(table, CFG, 0, 2,
-                                                  scan_chunks=1, **kw)
-    img_t3, segs_t3 = render_samples_pallas_stats(table, CFG, 0, 2,
-                                                  scan_chunks=3, **kw)
-    assert abs(float(segs_t1) - float(segs_t3)) <= 2.0
-    np.testing.assert_allclose(np.asarray(img_t3), np.asarray(img_t1),
                                rtol=1e-4, atol=1e-4)
 
 
@@ -372,225 +279,3 @@ def test_fast_scan_matches_parity_megakernel(scene):
     assert abs(float(segs_p) - float(segs_f)) <= 2.0
     np.testing.assert_allclose(np.asarray(img_f), np.asarray(img_p),
                                rtol=1e-4, atol=1e-4)
-
-
-def test_fast_scan_matches_parity_wavefront(scene):
-    from oclpathtracer_tpu.kernels.megakernel import scene_emissive_const
-    from oclpathtracer_tpu.kernels.wavefront import render_samples_wavefront_stats
-
-    table = pack_scene(scene)
-    emi = scene_emissive_const(scene)
-    img_p, segs_p = render_samples_wavefront_stats(table, CFG, 0, 2,
-                                                   interleave=1, scan="parity")
-    img_f, segs_f = render_samples_wavefront_stats(table, CFG, 0, 2,
-                                                   interleave=1, scan="fast",
-                                                   emi_const=emi)
-    assert abs(float(segs_p) - float(segs_f)) <= 2.0
-    np.testing.assert_allclose(np.asarray(img_f), np.asarray(img_p),
-                               rtol=1e-4, atol=1e-4)
-
-
-# ---------------- BVH megakernel ----------------
-
-def test_bvh_megakernel_matches_parity(scene):
-    from oclpathtracer_tpu.kernels.bvh_megakernel import (
-        pack_bvh_scene, render_samples_bvh_stats)
-
-    table, nf, ni = pack_bvh_scene(scene, leaf_size=4)
-    img_k, segs = render_samples_bvh_stats(table, nf, ni, CFG, 0, 1, max_leaf=4)
-    img_j = np.asarray(render_sample_ref(scene, CFG, 0))
-    np.testing.assert_allclose(np.asarray(img_k), img_j, rtol=1e-4, atol=1e-4)
-    assert float(segs) > CFG.n_pixels  # at least the primary rays
-
-
-def test_bvh_megakernel_segments_match_linear(scene):
-    """Both kernels trace identical paths -> identical segment counts."""
-    from oclpathtracer_tpu.kernels.megakernel import render_samples_pallas_stats
-    from oclpathtracer_tpu.kernels.bvh_megakernel import (
-        pack_bvh_scene, render_samples_bvh_stats)
-
-    table_lin = pack_scene(scene)
-    _, segs_lin = render_samples_pallas_stats(table_lin, CFG, 0, 2)
-    table, nf, ni = pack_bvh_scene(scene, leaf_size=4)
-    _, segs_bvh = render_samples_bvh_stats(table, nf, ni, CFG, 0, 2, max_leaf=4)
-    assert float(segs_lin) == float(segs_bvh)
-
-
-def test_bvh_windowed_traversal_bitwise_invariant(scene):
-    """Speculative windowed traversal only changes which boxes get tested —
-    radiance and segment counts are bitwise-invariant in `window` (odd width
-    exercises the packed any()-reduce tail)."""
-    from oclpathtracer_tpu.kernels.bvh_megakernel import (
-        pack_bvh_scene, render_samples_bvh_stats)
-    from oclpathtracer_tpu.kernels.megakernel import scene_emissive_const
-
-    table, nf, ni = pack_bvh_scene(scene, leaf_size=4)
-    emi = scene_emissive_const(scene)
-    r1, s1 = render_samples_bvh_stats(table, nf, ni, CFG, 0, 2, max_leaf=4,
-                                      scan="fast", emi_const=emi, window=1)
-    for w in (3, 4):
-        rw, sw = render_samples_bvh_stats(table, nf, ni, CFG, 0, 2, max_leaf=4,
-                                          scan="fast", emi_const=emi, window=w)
-        assert float(s1) == float(sw)
-        np.testing.assert_array_equal(np.asarray(r1), np.asarray(rw))
-
-
-def test_bvh_fast_scan_matches_parity(scene):
-    """Division-free leaf tests + fraction-form best-t prune must agree with
-    the parity BVH kernel (same traversal decisions, allclose radiance)."""
-    from oclpathtracer_tpu.kernels.bvh_megakernel import (
-        pack_bvh_scene, render_samples_bvh_stats)
-    from oclpathtracer_tpu.kernels.megakernel import scene_emissive_const
-
-    table, nf, ni = pack_bvh_scene(scene, leaf_size=4)
-    emi = scene_emissive_const(scene)
-    img_p, segs_p = render_samples_bvh_stats(table, nf, ni, CFG, 0, 2,
-                                             max_leaf=4, scan="parity")
-    img_f, segs_f = render_samples_bvh_stats(table, nf, ni, CFG, 0, 2,
-                                             max_leaf=4, scan="fast",
-                                             emi_const=emi)
-    assert abs(float(segs_p) - float(segs_f)) <= 2.0
-    np.testing.assert_allclose(np.asarray(img_f), np.asarray(img_p),
-                               rtol=1e-4, atol=1e-4)
-
-
-def test_wide_bvh_bitwise_matches_skip_walk(scene):
-    """8-wide bitmask-stack traversal (kernels/wide_bvh.py) visits leaves in
-    exactly the skip-walk's pre-order → bitwise-identical radiance and
-    segment counts, on the Cornell box and a 320-tri procedural scene, for
-    the parity and fast scans."""
-    from oclpathtracer_tpu.kernels.bvh_megakernel import (
-        pack_bvh_scene, render_samples_bvh_stats)
-    from oclpathtracer_tpu.kernels.megakernel import scene_emissive_const
-    from oclpathtracer_tpu.kernels.wide_bvh import (
-        pack_wide_bvh_scene, render_samples_wide_bvh_stats)
-    from oclpathtracer_tpu.scene.procgen import sphere_field
-
-    big = sphere_field(n_spheres=3, subdivisions=1, seed=2)
-    for sc, cfg in ((scene, CFG),
-                    (big, RenderConfig(width=32, height=32, bounces=4,
-                                       camera=CFG.camera.__class__(
-                                           eye=(0.0, 3.0, 9.0))))):
-        emi = scene_emissive_const(sc)
-        for scan in ("parity", "fast"):
-            table, nf, ni = pack_bvh_scene(sc, leaf_size=4, branching=8)
-            r_s, s_s = render_samples_bvh_stats(table, nf, ni, cfg, 0, 2,
-                                                max_leaf=4, scan=scan,
-                                                emi_const=emi)
-            wtable, wf, wi, depth, _ = pack_wide_bvh_scene(sc, leaf_size=4,
-                                                           scan=scan)
-            r_w, s_w = render_samples_wide_bvh_stats(
-                wtable, wf, wi, cfg, 0, 2, max_leaf=4, max_depth=depth,
-                scan=scan, emi_const=emi)
-            assert float(s_s) == float(s_w), (scan, float(s_s), float(s_w))
-            np.testing.assert_array_equal(np.asarray(r_s), np.asarray(r_w))
-
-
-def test_bvh_megakernel_large_scene():
-    """A 300+-triangle procedural scene renders finite, lit images."""
-    from oclpathtracer_tpu.scene.procgen import sphere_field
-    from oclpathtracer_tpu.kernels.bvh_megakernel import render_bvh
-
-    scene = sphere_field(n_spheres=3, subdivisions=1, seed=2)
-    cfg = RenderConfig(
-        width=32, height=32, bounces=4,
-        camera=CFG.camera.__class__(eye=(0.0, 3.0, 9.0)))
-    img = np.asarray(render_bvh(scene, cfg, total_spp=2, leaf_size=8))
-    assert np.isfinite(img).all() and img.min() >= 0.0
-    assert img.mean() > 0.01
-
-
-# ---------------- path-regeneration (wavefront) kernel ----------------
-
-def test_wavefront_bitwise_matches_megakernel(scene):
-    from oclpathtracer_tpu.kernels.wavefront import render_samples_wavefront_stats
-    from oclpathtracer_tpu.kernels.megakernel import render_samples_pallas_stats
-
-    table = pack_scene(scene)
-    img_w, segs_w = render_samples_wavefront_stats(table, CFG, 0, 3, interleave=1)
-    img_m, segs_m = render_samples_pallas_stats(table, CFG, 0, 3)
-    assert float(segs_w) == float(segs_m)
-    np.testing.assert_array_equal(np.asarray(img_w), np.asarray(img_m))
-
-
-def test_wavefront_interleaved_streams_match(scene):
-    """k>1 path streams trace the same paths (exact segment count) and only
-    reorder the per-lane accumulation (allclose). n=6 with k=4 exercises
-    unequal stream lengths (streams own samples {0,4},{1,5},{2},{3})."""
-    from oclpathtracer_tpu.kernels.wavefront import render_samples_wavefront_stats
-
-    table = pack_scene(scene)
-    img1, segs1 = render_samples_wavefront_stats(table, CFG, 0, 6, interleave=1)
-    img4, segs4 = render_samples_wavefront_stats(table, CFG, 0, 6, interleave=4)
-    assert float(segs1) == float(segs4)
-    np.testing.assert_allclose(np.asarray(img1), np.asarray(img4),
-                               rtol=1e-5, atol=1e-5)
-
-
-def test_wavefront_start_offset(scene):
-    from oclpathtracer_tpu.kernels.wavefront import render_samples_wavefront_stats
-
-    table = pack_scene(scene)
-    a, _ = render_samples_wavefront_stats(table, CFG, 0, 2)
-    b, _ = render_samples_wavefront_stats(table, CFG, 2, 2)
-    ab, _ = render_samples_wavefront_stats(table, CFG, 0, 4)
-    np.testing.assert_allclose(np.asarray(a) + np.asarray(b), np.asarray(ab),
-                               rtol=1e-5, atol=1e-5)
-
-
-# ---------------- AO / direct-NEE kernels ----------------
-
-def test_ao_kernel_matches_ref_twin(scene):
-    from oclpathtracer_tpu.integrators.ao import render_ao_sample_ref
-    from oclpathtracer_tpu.kernels.fast_integrators import render_ao_pallas
-
-    img_k = np.asarray(render_ao_pallas(pack_scene(scene), CFG, 0, 1))
-    img_j = np.asarray(render_ao_sample_ref(scene, CFG, 0))
-    np.testing.assert_allclose(img_k, img_j, rtol=1e-5, atol=1e-5)
-    assert 0.3 < img_k.mean() < 1.0  # partially occluded scene
-
-
-def test_direct_kernel_matches_ref_twin(scene):
-    from oclpathtracer_tpu.integrators.direct import render_direct_sample_ref
-    from oclpathtracer_tpu.kernels.fast_integrators import (
-        pack_lights, render_direct_pallas)
-
-    lt, area = pack_lights(scene)
-    img_k = np.asarray(render_direct_pallas(pack_scene(scene), lt, area, CFG, 0, 2))
-    img_j = sum(np.asarray(render_direct_sample_ref(scene, CFG, i)) for i in range(2))
-    np.testing.assert_allclose(img_k, img_j, rtol=1e-4, atol=1e-4)
-    assert img_k.mean() > 0.1  # lit
-
-
-# ---------------- sorted-wavefront (HBM ray state) kernel ----------------
-
-def test_sorted_wavefront_matches_bvh_megakernel(scene):
-    """Per-path radiance identical to the fused BVH kernel (same streams, same
-    traversal); per-pixel sums allclose (scatter-add order); exact segment
-    parity. Both sort modes."""
-    from oclpathtracer_tpu.kernels.bvh_megakernel import (
-        pack_bvh_scene, render_samples_bvh_stats)
-    from oclpathtracer_tpu.kernels.sorted_wavefront import (
-        render_samples_sorted_stats)
-
-    tb, nf, ni = pack_bvh_scene(scene, leaf_size=8)
-    ref, segs_ref = render_samples_bvh_stats(tb, nf, ni, CFG, 0, 3, max_leaf=8)
-    for sort in (False, True):
-        img, segs = render_samples_sorted_stats(tb, nf, ni, CFG, 0, 3,
-                                                max_leaf=8, sort=sort)
-        assert float(segs) == float(segs_ref)
-        np.testing.assert_allclose(np.asarray(img), np.asarray(ref),
-                                   rtol=1e-5, atol=1e-5)
-
-
-def test_sorted_wavefront_start_offset(scene):
-    from oclpathtracer_tpu.kernels.bvh_megakernel import pack_bvh_scene
-    from oclpathtracer_tpu.kernels.sorted_wavefront import (
-        render_samples_sorted_stats)
-
-    tb, nf, ni = pack_bvh_scene(scene, leaf_size=8)
-    a, _ = render_samples_sorted_stats(tb, nf, ni, CFG, 0, 2, max_leaf=8)
-    b, _ = render_samples_sorted_stats(tb, nf, ni, CFG, 2, 2, max_leaf=8)
-    ab, _ = render_samples_sorted_stats(tb, nf, ni, CFG, 0, 4, max_leaf=8)
-    np.testing.assert_allclose(np.asarray(a) + np.asarray(b), np.asarray(ab),
-                               rtol=1e-5, atol=1e-5)

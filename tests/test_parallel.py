@@ -27,7 +27,7 @@ def test_shard_pixels_pads_and_masks(cpu_devices):
     ids = shard_pixels(CFG, mesh)
     assert ids.shape == (CFG.n_pixels,)  # divisible → no pad
     # Non-divisible images round up to a multiple of the mesh and clamp the
-    # tail to the last real pixel (pad-and-mask, VERDICT r4 item 8).
+    # tail to the last real pixel (pad-and-mask).
     bad = RenderConfig(width=33, height=7)  # 231 px on 8 devices → 232
     ids = np.asarray(shard_pixels(bad, mesh))
     assert ids.shape == (232,)
@@ -102,31 +102,6 @@ def test_sharded_megakernel_bitwise_matches_single(scene, cpu_devices, scan_req)
     np.testing.assert_array_equal(np.asarray(img_sh), np.asarray(img_1))
 
 
-def test_sharded_wavefront_bitwise_matches_single(scene, cpu_devices):
-    """The path-regeneration kernel under shard_map must be bitwise identical
-    to its single-device run at interleave=1 (the 16-bounce production kernel's
-    sharding contract — VERDICT r3 item 5)."""
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    from oclpathtracer_tpu.kernels.megakernel import prepare_scan
-    from oclpathtracer_tpu.kernels.wavefront import render_samples_wavefront_stats
-    from oclpathtracer_tpu.parallel.sharded_pallas import make_sharded_kernel_step
-
-    cfg = RenderConfig(width=64, height=32, bounces=4)
-    mesh = default_mesh(cpu_devices)
-    scan, table, emi, classes = prepare_scan(scene, "auto")
-    step = make_sharded_kernel_step(cfg, mesh, 2, scan=scan, emi_const=emi,
-                                    classes=classes, kernel="wavefront",
-                                    interleave=1)
-    img_sh, segs_sh = step(jax.device_put(table, NamedSharding(mesh, P())),
-                           jnp.int32(0))
-    img_1, segs_1 = render_samples_wavefront_stats(
-        table, cfg, 0, 2, scan=scan, emi_const=emi, classes=classes,
-        interleave=1)
-    np.testing.assert_array_equal(np.asarray(img_sh), np.asarray(img_1))
-    assert float(segs_sh) == float(segs_1)
-
-
 def test_multihost_two_process(scene, tmp_path):
     """REAL jax.distributed bring-up: 2 processes × 2 CPU devices (SURVEY §4d).
 
@@ -145,11 +120,10 @@ def test_multihost_two_process(scene, tmp_path):
 
     repo = str(Path(__file__).resolve().parents[1])
     worker = str(Path(__file__).with_name("_multihost_worker.py"))
-    # Sanitized env: no inherited XLA flags, no TPU plugin paths/vars (a TPU
-    # plugin would pin the platform and fight over the single real chip), no
-    # ambient JAX settings — the workers are a pure 2-process CPU pod.
+    # Sanitized env: no inherited XLA flags or ambient JAX settings — the
+    # workers are a pure 2-process CPU cluster.
     env = {k: v for k, v in os.environ.items()
-           if not (k.startswith(("XLA_", "JAX_", "TPU_", "PALLAS_"))
+           if not (k.startswith(("XLA_", "JAX_", "PALLAS_"))
                    or k == "PYTHONPATH")}
     env["PYTHONPATH"] = repo
     procs = [

@@ -1,13 +1,13 @@
 """Automated statistical parity against the reference's ONE external ground
-truth: FinalRendered_Specular.jpg (README.md:9) — VERDICT r4 item 5.
+truth: FinalRendered_Specular.jpg (README.md:9).
 
 Until round 5 this was checked by eyeball. The key that makes it automatic:
 the reference's PPM export applies sqrt ON TOP of the kernel's gamma-2.2
 framebuffer (RaytraceTest.cpp:283 + GenerateColors.cl:314-321 — the
 documented double-gamma quirk), so the JPEG is encoded ~ c^(1/4.4) while our
 artifact PNG is c^(1/2.2): sqrt(artifact) must equal the JPEG. It does, to
-8-bit precision — measured round 5 on the round-4 TPU artifact
-(512², 16 bounces, 4096 spp):
+8-bit precision — measured on the 4096-spp artifact render (512², 16
+bounces):
 
     worst per-material region-channel |mean diff|  = 0.0113   (< 3/255)
     32×32 box-downsampled relative L2              = 0.0040
@@ -30,10 +30,10 @@ from oclpathtracer_tpu.diff.edge import rays_at
 
 REF_JPG = "/root/reference/FinalRendered_Specular.jpg"
 _ART_DIR = os.path.join(os.path.dirname(__file__), "..", "artifacts")
-# Prefer the most-converged checked-in TPU render (round 5: 16384 spp,
-# rel-L2 0.0040 vs the JPEG; round 4's 4096 spp kept as fallback).
-_CANDIDATES = ("cornell_512_16b_16384spp_tpu.png",
-               "cornell_512_16b_4096spp_tpu.png")
+# Prefer the most-converged checked-in render (16384 spp, rel-L2 0.0040 vs
+# the JPEG; the 4096-spp render kept as fallback).
+_CANDIDATES = ("cornell_512_16b_16384spp.png",
+               "cornell_512_16b_4096spp.png")
 ARTIFACT = next((os.path.join(_ART_DIR, c) for c in _CANDIDATES
                  if os.path.exists(os.path.join(_ART_DIR, c))),
                 os.path.join(_ART_DIR, _CANDIDATES[-1]))
@@ -42,7 +42,7 @@ ARTIFACT = next((os.path.join(_ART_DIR, c) for c in _CANDIDATES
 def test_statistical_parity_vs_reference_jpeg(scene):
     PIL = pytest.importorskip("PIL.Image")
     if not (os.path.exists(REF_JPG) and os.path.exists(ARTIFACT)):
-        pytest.skip("reference JPEG or TPU artifact not present")
+        pytest.skip("reference JPEG or artifact render not present")
 
     ref = np.asarray(PIL.open(REF_JPG).convert("RGB"), np.float32) / 255.0
     art = np.asarray(PIL.open(ARTIFACT).convert("RGB"), np.float32) / 255.0

@@ -115,15 +115,15 @@ def test_png_writes_valid_header(tmp_path):
 
 @pytest.mark.slow  # interpret-mode kernel render dominates wall-time
 def test_kernel_backend_matches_megakernel_direct(scene):
-    """render_progressive(backend="pallas") ≡ the raw kernel's chunk sums,
-    bitwise per scan mode (auto resolves to the fast scan on this scene)."""
+    """render_progressive(backend="auto") ≡ the raw kernel's chunk sums,
+    bitwise per scan mode."""
     from oclpathtracer_tpu.kernels.megakernel import (
         pack_scene, render_samples_pallas_stats, scene_emissive_const)
 
     table = pack_scene(scene)
     emi = scene_emissive_const(scene)
     for scan, kw in (("parity", {}), ("fast", {"emi_const": emi})):
-        img = render_progressive(scene, CFG, total_spp=4, backend="pallas",
+        img = render_progressive(scene, CFG, total_spp=4, backend="auto",
                                  samples_per_step=2, scan=scan)
         a, _ = render_samples_pallas_stats(table, CFG, 0, 2, scan=scan, **kw)
         b, _ = render_samples_pallas_stats(table, CFG, 2, 2, scan=scan, **kw)
@@ -132,39 +132,12 @@ def test_kernel_backend_matches_megakernel_direct(scene):
 
 
 @pytest.mark.slow  # interpret-mode kernel render dominates wall-time
-def test_kernel_backend_auto_dispatch(scene):
-    """auto picks the linear kernel ≤ LINEAR_KERNEL_MAX_TRIS and BVH above."""
-    from oclpathtracer_tpu.render.driver import LINEAR_KERNEL_MAX_TRIS
-
-    assert int(scene.geometry.p1.shape[0]) <= LINEAR_KERNEL_MAX_TRIS
-    img_auto = render_progressive(scene, CFG, total_spp=2, backend="auto")
-    img_lin = render_progressive(scene, CFG, total_spp=2, backend="pallas")
-    np.testing.assert_array_equal(np.asarray(img_auto), np.asarray(img_lin))
-    # BVH backends render the same scene to the same converged look (same
-    # streams, different intersection order -> allclose); the wide kernel is
-    # bitwise the skip-walk (test_kernels.py pins it on its own build).
-    img_bvh = render_progressive(scene, CFG, total_spp=2, backend="bvh")
-    np.testing.assert_allclose(np.asarray(img_bvh), np.asarray(img_lin),
-                               rtol=1e-4, atol=1e-4)
-    img_wide = render_progressive(scene, CFG, total_spp=2, backend="widebvh")
-    np.testing.assert_allclose(np.asarray(img_wide), np.asarray(img_lin),
-                               rtol=1e-4, atol=1e-4)
-    # Past 8 bounces auto switches to the path-regeneration kernel (it wins
-    # once mean path length ≪ the bounce cap — driver.py round 4).
-    deep = RenderConfig(width=16, height=16, bounces=9)
-    img_deep = render_progressive(scene, deep, total_spp=2, backend="auto")
-    img_wave = render_progressive(scene, deep, total_spp=2,
-                                  backend="wavefront")
-    np.testing.assert_array_equal(np.asarray(img_deep), np.asarray(img_wave))
-
-
-@pytest.mark.slow  # interpret-mode kernel render dominates wall-time
 def test_kernel_backend_checkpoint_resume(scene, tmp_path):
     path = str(tmp_path / "kacc.npz")
-    full = render_progressive(scene, CFG, total_spp=4, backend="pallas",
+    full = render_progressive(scene, CFG, total_spp=4, backend="auto",
                               samples_per_step=2)
-    render_progressive(scene, CFG, total_spp=2, backend="pallas",
+    render_progressive(scene, CFG, total_spp=2, backend="auto",
                        samples_per_step=2, checkpoint_path=path)
-    resumed = render_progressive(scene, CFG, total_spp=4, backend="pallas",
+    resumed = render_progressive(scene, CFG, total_spp=4, backend="auto",
                                  samples_per_step=2, checkpoint_path=path)
     np.testing.assert_array_equal(np.asarray(full), np.asarray(resumed))

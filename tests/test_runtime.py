@@ -73,9 +73,66 @@ def test_device_queries(cpu_devices):
         make_mesh((16,), ("tiles",), cpu_devices)
 
 
-def test_compilation_cache_dir(tmp_path):
+@pytest.fixture
+def _restore_cache_config():
+    names = ("jax_compilation_cache_dir",
+             "jax_persistent_cache_min_compile_time_secs",
+             "jax_persistent_cache_min_entry_size_bytes")
+    saved = {n: getattr(jax.config, n) for n in names}
+    yield
+    for n, v in saved.items():
+        jax.config.update(n, v)
+
+
+def test_compilation_cache_dir(tmp_path, monkeypatch, _restore_cache_config):
+    """An explicit directory always wins, whatever the environment says."""
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "env"))
     d = enable_compilation_cache(str(tmp_path / "xla"))
-    assert os.path.isdir(d)
+    assert d == str(tmp_path / "xla") and os.path.isdir(d)
+    assert jax.config.jax_compilation_cache_dir == d
+
+
+def _config_updates(monkeypatch):
+    from oclpathtracer_tpu.runtime import cache
+
+    calls = {}
+    monkeypatch.setattr(cache.jax.config, "update",
+                        lambda name, value: calls.__setitem__(name, value))
+    return cache, calls
+
+
+def test_cache_dir_from_environment(tmp_path, monkeypatch):
+    """JAX_COMPILATION_CACHE_DIR set: JAX reads it itself; no dir is set in
+    code (only the size/time thresholds)."""
+    cache, calls = _config_updates(monkeypatch)
+    monkeypatch.delenv("OCLPT_COMPILATION_CACHE", raising=False)
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "env"))
+    assert cache.default_cache_dir() == str(tmp_path / "env")
+    assert cache.enable_compilation_cache() == str(tmp_path / "env")
+    assert "jax_compilation_cache_dir" not in calls
+    assert calls["jax_persistent_cache_min_compile_time_secs"] == 0.0
+
+
+def test_cache_dir_defaults_inside_checkout(monkeypatch):
+    """Unset: one fixed directory at the checkout root, listed in .gitignore."""
+    cache, calls = _config_updates(monkeypatch)
+    monkeypatch.delenv("OCLPT_COMPILATION_CACHE", raising=False)
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    monkeypatch.setattr(cache.os, "makedirs", lambda *a, **k: None)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert cache.default_cache_dir() == os.path.join(root, ".jax_cache")
+    assert cache.enable_compilation_cache() == os.path.join(root, ".jax_cache")
+    assert calls["jax_compilation_cache_dir"] == os.path.join(root,
+                                                              ".jax_cache")
+    with open(os.path.join(root, ".gitignore")) as f:
+        assert ".jax_cache/" in f.read().split()
+
+
+def test_cache_off_switch(monkeypatch):
+    cache, calls = _config_updates(monkeypatch)
+    monkeypatch.setenv("OCLPT_COMPILATION_CACHE", "off")
+    assert cache.enable_compilation_cache() == ""
+    assert calls == {}
 
 
 def test_stopwatch_and_timed():
